@@ -1,0 +1,259 @@
+"""Scene nodes: the MANO hand and the rigid object (counterpart of the
+training path of hold_tpu/models/nodes.py).
+
+Each node owns a canonical SDF field, a color field, a Laplace density, and
+per-frame pose tables; a deformer warps deformed-space ray samples into the
+canonical field.  Training runs in two stages:
+
+- ``*_node_sample_z``: the error-bound sampler, stop-gradient.  Its SDF
+  queries run the trunk in bfloat16 (sample placement tolerates it), the
+  hand's warp through the ``knn_inverse_warp`` kernel.
+- ``*_node_forward``: the grad stage.  The hand's warp and inverse skinning
+  Jacobian are the ``knn_inverse_warp_diff`` and ``knn_jacobian_inverse``
+  kernels; the shade (SDF, its gradient for the normal, features, color)
+  runs in float32, chunked over the points, with the SDF gradient taken
+  with ``create_graph=True`` so the loss differentiates through it.
+
+A batch carries B frames x P pixels; ray tensors are flat (R = B*P); warp
+tensors keep the (B, P*S) frame grouping because bone transforms differ per
+frame.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from hold_tpu.models.specs import MAX_CLASS
+
+from ..mano.server import ManoServerState, mano_server_forward
+from ..ops.chunk import map_chunked
+from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
+from ..render.ray_sampler import SamplerConfig, error_bound_z_vals
+from ..utils.transforms import inverse_mat3, safe_norm
+from .density import laplace_beta, laplace_density
+from .mlp import (
+    _apply_linear,
+    apply_implicit_trunk,
+    apply_rendering_net,
+    cast_tree,
+    implicit_feat_from_trunk,
+    implicit_sdf_from_trunk,
+    resolve_weight_norm,
+)
+from .object_model import ObjectServerState, object_deform, object_server_forward
+
+
+class NodePlans(NamedTuple):
+    implicit: dict
+    rendering: dict
+    sampler: SamplerConfig
+    barf_cfg: tuple
+    class_id: int
+    knn_k: int = 15
+    max_dist: float = 0.1
+
+
+def _flat_per_point(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, C) -> (B*n, C): per-frame vectors repeated for each point."""
+    B, C = x.shape
+    return x[:, None, :].expand(B, n, C).reshape(B * n, C)
+
+
+def _mano_pose(nparams, server: ManoServerState, batch, epoch):
+    tables, frame_idx = nparams["tables"], batch["frame_idx"]
+    B = frame_idx.shape[0]
+    full_pose = torch.cat(
+        [tables["global_orient"][frame_idx], tables["pose"][frame_idx]], dim=-1
+    )
+    srv_out = mano_server_forward(
+        server, batch["scene_scale"], tables["transl"][frame_idx], full_pose,
+        tables["betas"].expand(B, -1),
+    )
+    # pose conditioning: /pi normalisation, zeroed for epochs < 20
+    cond_pose = full_pose[:, 3:] / math.pi
+    if epoch is not None and epoch < 20:
+        cond_pose = cond_pose * 0.0
+    return srv_out, cond_pose
+
+
+def _object_pose(nparams, server: ObjectServerState, batch):
+    tables, frame_idx = nparams["tables"], batch["frame_idx"]
+    return object_server_forward(
+        server, batch["scene_scale"], tables["transl"][frame_idx],
+        tables["global_orient"][frame_idx], obj_scale=nparams.get("obj_scale"),
+    )
+
+
+def _semantics(plans: NodePlans, R: int, S: int, device) -> torch.Tensor:
+    sem = torch.zeros((R, S, MAX_CLASS), device=device)
+    sem[:, :, plans.class_id] = 1.0
+    return sem
+
+
+def _shade_sdf_and_grad(imp, plans, xc, step):
+    """SDF trunk + width-1 head at ``xc`` and d(sdf)/d(xc) with its graph."""
+    with torch.enable_grad():
+        if not xc.requires_grad:
+            xc = xc.detach().requires_grad_(True)
+        h = apply_implicit_trunk(imp, plans.implicit, xc, None, step=step,
+                                 barf_cfg=plans.barf_cfg)
+        sdf = implicit_sdf_from_trunk(imp, h)
+        (g,) = torch.autograd.grad(sdf, xc, torch.ones_like(sdf), create_graph=True)
+    return xc, sdf, h, g
+
+
+def _normalize(n: torch.Tensor) -> torch.Tensor:
+    return n / torch.clamp(safe_norm(n, keepdim=True), min=1e-6)
+
+
+def _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f):
+    return {
+        "color": rgb.reshape(B * P, S_f, 3),
+        "normal": normals.reshape(B * P, S_f, 3),
+        "density": laplace_density(nparams["density"], sdf).reshape(B * P, S_f, 1),
+        "semantics": _semantics(plans, B * P, S_f, z_vals.device),
+        "z_vals": z_vals,
+    }
+
+
+# --------------------------------------------------------------------------
+# Grad stage
+# --------------------------------------------------------------------------
+
+def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
+                      ray_dirs, cam_loc, step, epoch, z_vals):
+    """Returns (factors, sample_dict) for the hand at the given z table."""
+    B, P = batch["uv"].shape[:2]
+    imp = resolve_weight_norm(nparams["implicit"])
+    rend = resolve_weight_norm(nparams["rendering"])
+    srv_out, cond_pose = _mano_pose(nparams, server, batch, epoch)
+    tfs = srv_out.tfs.contiguous()
+    verts_posed = srv_out.verts.contiguous()
+    verts_c = server.verts_c.expand(B, -1, -1).contiguous()
+    skin_w = server.skin_weights_c.expand(B, -1, -1).contiguous()
+
+    S_f = z_vals.shape[1]
+    pts = (cam_loc[:, None, :] + z_vals[:, :, None] * ray_dirs[:, None, :]).reshape(B, P * S_f, 3)
+    x_c, outlier = knn_inverse_warp_diff(
+        pts, verts_posed, skin_w, tfs, K=plans.knn_k, max_dist=plans.max_dist
+    )
+    # inverse skinning Jacobian at the canonical points (weights queried
+    # against the CANONICAL vertices)
+    jinv9 = knn_jacobian_inverse(x_c, verts_c, skin_w, tfs, K=plans.knn_k).reshape(-1, 9)
+    view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
+    # lin_pose once per frame, then broadcast to the frame's points
+    pe_pp = _flat_per_point(_apply_linear(rend["lin_pose"], cond_pose).float(), P * S_f)
+
+    def shade(xc, pe, vw, jinv):
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step)
+        feat = implicit_feat_from_trunk(imp, h)
+        # n_j = sum_i g_i (J^-1)_ij with J^-1 row-major
+        nrm = _normalize(torch.stack(
+            [sum(g[:, i] * jinv[:, 3 * i + j] for i in range(3)) for j in range(3)], dim=-1
+        ))
+        rgb = apply_rendering_net(rend, plans.rendering, xc, nrm, vw, None, feat,
+                                  step=step, barf_cfg=plans.barf_cfg, pose_embed=pe)
+        return sdf, rgb, nrm
+
+    sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), pe_pp, view, jinv9),
+                                    B * P * S_f)
+    factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "sample_sdf": sdf.reshape(B, P, S_f),
+        "cond_pose": cond_pose,
+        "tfs": tfs,
+        "verts_posed": verts_posed,
+        "v_posed": srv_out.v_posed,
+        "jnts": srv_out.jnts,
+        "outlier": outlier,
+    }
+    return factors, sample_dict
+
+
+def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, batch,
+                        ray_dirs, cam_loc, step, epoch, z_vals):
+    B, P = batch["uv"].shape[:2]
+    imp = resolve_weight_norm(nparams["implicit"])
+    rend = resolve_weight_norm(nparams["rendering"])
+    tfs = _object_pose(nparams, server, batch).obj_tfs
+    time_code = nparams["frame_latent"][batch["frame_idx"]]
+
+    S_f = z_vals.shape[1]
+    N = B * P * S_f
+    pts = (cam_loc[:, None, :] + z_vals[:, :, None] * ray_dirs[:, None, :]).reshape(B, P * S_f, 3)
+    x_c = object_deform(pts, tfs, inverse=True)
+    # rigid deformer: J = R per frame, n = g R^-1
+    rinv = inverse_mat3(tfs[:, :3, :3])[:, None].expand(B, P * S_f, 3, 3).reshape(N, 3, 3)
+    tc_pp = _flat_per_point(time_code, P * S_f)
+    view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
+
+    def shade(xc, vw, jinv, tc):
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step)
+        feat = implicit_feat_from_trunk(imp, h)
+        nrm = _normalize(torch.einsum("ni,nij->nj", g, jinv))
+        rgb = apply_rendering_net(
+            rend, plans.rendering, xc, nrm, vw, None,
+            torch.cat([feat.to(tc.dtype), tc], dim=-1), step=step, barf_cfg=plans.barf_cfg,
+        )
+        return sdf, rgb, nrm
+
+    sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N)
+    factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "sample_sdf": sdf.reshape(B, P, S_f),
+        "tfs": tfs,
+    }
+    return factors, sample_dict
+
+
+# --------------------------------------------------------------------------
+# Sampler stage
+# --------------------------------------------------------------------------
+
+def _bf16_trunk_sdf(implicit_bf16, plans, x_c, step):
+    h = apply_implicit_trunk(implicit_bf16, plans.implicit, x_c, None, step=step,
+                             barf_cfg=plans.barf_cfg)
+    return implicit_sdf_from_trunk(implicit_bf16, h).float()
+
+
+@torch.no_grad()
+def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_loc,
+                       step, epoch, gen):
+    """Stop-gradient error-bound z table (R, S_f) for the hand."""
+    B, P = batch["uv"].shape[:2]
+    srv_out, _ = _mano_pose(nparams, server, batch, epoch)
+    tfs = srv_out.tfs.contiguous()
+    verts_posed = srv_out.verts.contiguous()
+    skin_w = server.skin_weights_c.expand(B, -1, -1).contiguous()
+    implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
+
+    def sampler_sdf(pts_RS3):
+        S = pts_RS3.shape[1]
+        x_c, _ = knn_inverse_warp(pts_RS3.reshape(B, P * S, 3), verts_posed, skin_w, tfs,
+                                  K=plans.knn_k, max_dist=plans.max_dist)
+        return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
+
+    beta0 = laplace_beta(nparams["density"])
+    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)
+
+
+@torch.no_grad()
+def object_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_loc,
+                         step, epoch, gen):
+    """Stop-gradient error-bound z table (R, S_f) for the object."""
+    B, P = batch["uv"].shape[:2]
+    tfs = _object_pose(nparams, server, batch).obj_tfs
+    implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
+
+    def sampler_sdf(pts_RS3):
+        S = pts_RS3.shape[1]
+        x_c = object_deform(pts_RS3.reshape(B, P * S, 3), tfs, inverse=True)
+        return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
+
+    beta0 = laplace_beta(nparams["density"])
+    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)

@@ -1,0 +1,118 @@
+"""Build and load the package's CUDA kernels (``hold_tpu_torch/csrc/*.cu``).
+
+The sources have a plain C interface, so they compile with ``nvcc`` alone
+(seconds, no PyTorch headers) into one shared library that ``ctypes`` loads.
+The build happens at the first kernel launch, into ``hold_tpu_torch/_build/``
+under a name keyed by the sources' hash, so an edited source never loads a
+stale library.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# every entry point returns cudaError_t as int
+_SIGNATURES = {
+    "hold_knn_warp_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "hold_knn_warp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hold_knn_jinv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "hold_knn_jinv_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "hold_min_vertex_dist": [_P, _P, _P, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _build() -> Path:
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    digest = hashlib.sha256()
+    for s in sources:
+        digest.update(s.name.encode())
+        digest.update(s.read_bytes())
+    out = BUILD_DIR / f"libhold_kernels_{digest.hexdigest()[:12]}.so"
+    if out.exists():
+        build_info.update(path=str(out), seconds=0.0, cached=True, ptxas="")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *map(str, sources),
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    build_info.update(
+        path=str(out), seconds=time.perf_counter() - t0, cached=False,
+        ptxas=proc.stderr,
+    )
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(_build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point on the current stream; raise on a CUDA error."""
+    err = getattr(lib(), name)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``shape``/``dtype``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
