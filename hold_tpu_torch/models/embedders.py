@@ -44,15 +44,22 @@ def barf_weights(alpha: float, num_freq: int) -> torch.Tensor:
     return torch.tensor(w, dtype=torch.float32)
 
 
+def barf_window(alpha: float, num_freq: int, input_dims: int = 3) -> torch.Tensor:
+    """Per-column weights of the embedding with its input: ones for x, then
+    each frequency's window weight over its 2 * input_dims sin/cos columns."""
+    return torch.cat([torch.ones(input_dims),
+                      torch.repeat_interleave(barf_weights(alpha, num_freq), 2 * input_dims)])
+
+
 def barf_embed(x: torch.Tensor, num_freq: int, alpha: float | None,
                include_input: bool = True) -> torch.Tensor:
     enc = fourier_embed(x, num_freq, include_input=include_input)
     if alpha is None:
         return enc
     D = x.shape[-1]
-    w_blocks = torch.repeat_interleave(barf_weights(alpha, num_freq), 2 * D)
-    if include_input:
-        w_blocks = torch.cat([torch.ones(D), w_blocks])
+    w_blocks = barf_window(alpha, num_freq, D)
+    if not include_input:
+        w_blocks = w_blocks[D:]
     return enc * w_blocks.to(device=x.device, dtype=x.dtype)
 
 

@@ -51,6 +51,7 @@ from .nodes import (
     mano_node_sample_z,
     object_node_forward,
     object_node_sample_z,
+    use_fused_query,
 )
 from .object_model import build_object_server
 
@@ -83,7 +84,12 @@ def _object_render_opt(opt_model) -> dict:
     return opt
 
 
-def build_scene(opt_model, args, scene_data: dict, device=None) -> Scene:
+def build_scene(opt_model, args, scene_data: dict, device=None,
+                fused_sampler: bool = True) -> Scene:
+    """Static scene state.  ``fused_sampler=False`` makes every node's
+    sampler query the trunk layer by layer (the JAX package's
+    ``HOLD_NO_FUSED_SAMPLER=1``); otherwise nodes whose trunk the fused
+    query kernel supports use it."""
     if opt_model.get("proposal", {}).get("enabled", False):
         raise NotImplementedError(
             "the proposal net is not ported: set model.proposal.enabled to false"
@@ -115,10 +121,12 @@ def build_scene(opt_model, args, scene_data: dict, device=None) -> Scene:
             M, faces_div = mano_subdivision_operator(servers[nid].consts.faces, nid == "right")
             sub_ops[nid] = (torch.as_tensor(M, device=device),
                             torch.as_tensor(faces_div, device=device))
+        implicit = implicit_net_shapes(opt_model["implicit_network"], specs)
         plans[nid] = NodePlans(
-            implicit=implicit_net_shapes(opt_model["implicit_network"], specs),
+            implicit=implicit,
             rendering=rendering_net_shapes(render_opt, specs),
             sampler=sampler_cfg, barf_cfg=barf_cfg, class_id=CLASS_IDS[nid],
+            fused_query=fused_sampler and use_fused_query(implicit, sampler_cfg),
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,

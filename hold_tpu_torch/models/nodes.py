@@ -6,8 +6,11 @@ per-frame pose tables; a deformer warps deformed-space ray samples into the
 canonical field.  Training runs in two stages:
 
 - ``*_node_sample_z``: the error-bound sampler, stop-gradient.  Its SDF
-  queries run the trunk in bfloat16 (sample placement tolerates it), the
-  hand's warp through the ``knn_inverse_warp`` kernel.
+  queries run the trunk in bfloat16 (sample placement tolerates it).  By
+  default (``NodePlans.fused_query``) each round's query is one fused
+  kernel per node (``ops/fused_query.py``: warp, embedding, trunk and head
+  from the z table); otherwise the layer-by-layer path warps the hand's
+  points with the ``knn_inverse_warp`` kernel and runs the trunk in torch.
 - ``*_node_forward``: the grad stage.  The hand's warp and inverse skinning
   Jacobian are the ``knn_inverse_warp_diff`` and ``knn_jacobian_inverse``
   kernels; the shade (SDF, its gradient for the normal, features, color)
@@ -30,6 +33,13 @@ from hold_tpu.models.specs import MAX_CLASS
 
 from ..mano.server import ManoServerState, mano_server_forward
 from ..ops.chunk import map_chunked
+from ..ops.fused_query import (
+    embed_window,
+    fused_hand_sampler_sdf_z,
+    fused_object_sampler_sdf_z,
+    pack_trunk_weights,
+    supports_fused_query,
+)
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
 from ..render.ray_sampler import SamplerConfig, error_bound_z_vals
 from ..utils.transforms import inverse_mat3, safe_norm
@@ -54,6 +64,17 @@ class NodePlans(NamedTuple):
     class_id: int
     knn_k: int = 15
     max_dist: float = 0.1
+    fused_query: bool = False  # sampler queries through ops/fused_query.py
+
+
+def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
+    """The JAX package's rule for the fused sampler query (its nodes.py
+    ``_use_fused_query`` without the TPU check): a supported trunk, and
+    8 rays x N_samples_eval splitting into whole 512-point slices as the TPU
+    kernel requires.  The CUDA kernel has no such tile constraint; keeping
+    the rule makes the port compute the JAX package's math in every
+    configuration."""
+    return supports_fused_query(implicit) and (8 * sampler.N_samples_eval) % 512 == 0
 
 
 def _flat_per_point(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -230,7 +251,24 @@ def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_l
     tfs = srv_out.tfs.contiguous()
     verts_posed = srv_out.verts.contiguous()
     skin_w = server.skin_weights_c.expand(B, -1, -1).contiguous()
-    implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
+    resolved = resolve_weight_norm(nparams["implicit"])
+    beta0 = laplace_beta(nparams["density"])
+
+    if plans.fused_query:
+        pack = pack_trunk_weights(resolved, plans.implicit)
+        window = embed_window(plans.implicit, step, plans.barf_cfg, ray_dirs.device)
+        dirs, cams = ray_dirs.contiguous(), cam_loc.contiguous()
+
+        def query_z(z_RS):
+            sdf = fused_hand_sampler_sdf_z(dirs, cams, z_RS.reshape(B, P, -1).contiguous(),
+                                           verts_posed, skin_w, tfs, window, pack,
+                                           K=plans.knn_k)
+            return sdf.reshape(B * P, -1)
+
+        return error_bound_z_vals(gen, None, ray_dirs, cam_loc, beta0, plans.sampler,
+                                  query_z_fn=query_z)
+
+    implicit_bf16 = cast_tree(resolved, torch.bfloat16)
 
     def sampler_sdf(pts_RS3):
         S = pts_RS3.shape[1]
@@ -238,7 +276,6 @@ def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_l
                                   K=plans.knn_k, max_dist=plans.max_dist)
         return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
 
-    beta0 = laplace_beta(nparams["density"])
     return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)
 
 
@@ -248,12 +285,28 @@ def object_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam
     """Stop-gradient error-bound z table (R, S_f) for the object."""
     B, P = batch["uv"].shape[:2]
     tfs = _object_pose(nparams, server, batch).obj_tfs
-    implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
+    resolved = resolve_weight_norm(nparams["implicit"])
+    beta0 = laplace_beta(nparams["density"])
+
+    if plans.fused_query:
+        pack = pack_trunk_weights(resolved, plans.implicit)
+        window = embed_window(plans.implicit, step, plans.barf_cfg, ray_dirs.device)
+        tf12 = torch.cat([inverse_mat3(tfs[:, :3, :3]).reshape(B, 9), tfs[:, :3, 3]], dim=-1)
+        dirs, cams = ray_dirs.contiguous(), cam_loc.contiguous()
+
+        def query_z(z_RS):
+            sdf = fused_object_sampler_sdf_z(dirs, cams, z_RS.reshape(B, P, -1).contiguous(),
+                                             tf12.contiguous(), window, pack)
+            return sdf.reshape(B * P, -1)
+
+        return error_bound_z_vals(gen, None, ray_dirs, cam_loc, beta0, plans.sampler,
+                                  query_z_fn=query_z)
+
+    implicit_bf16 = cast_tree(resolved, torch.bfloat16)
 
     def sampler_sdf(pts_RS3):
         S = pts_RS3.shape[1]
         x_c = object_deform(pts_RS3.reshape(B, P * S, 3), tfs, inverse=True)
         return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
 
-    beta0 = laplace_beta(nparams["density"])
     return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)

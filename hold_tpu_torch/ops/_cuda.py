@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels (``hold_tpu_torch/csrc/*.cu``).
 
 The sources have a plain C interface, so they compile with ``nvcc`` alone
-(seconds, no PyTorch headers) into one shared library that ``ctypes`` loads.
-The build happens at the first kernel launch, into ``hold_tpu_torch/_build/``
-under a name keyed by the sources' hash, so an edited source never loads a
+(seconds, no PyTorch headers), one process per source in parallel, into one
+shared library that ``ctypes`` loads.  The build happens at the first kernel
+launch, into ``hold_tpu_torch/_build/`` under a name keyed by the hash of the
+sources and their headers, so an edited source or header never loads a
 stale library.  Nothing here runs at import time.
 """
 
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "hold_knn_jinv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "hold_knn_jinv_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
     "hold_min_vertex_dist": [_P, _P, _P, _I, _I, _P],
+    "hold_fused_hand_sdf_z": [_P] * 10 + [_I] * 7 + [_P],
+    "hold_fused_object_sdf_z": [_P] * 8 + [_I] * 4 + [_P],
+    "hold_fused_hand_sdf": [_P] * 8 + [_I] * 6 + [_P],
+    "hold_fused_object_sdf": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -53,10 +58,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all; raise on the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}\n{err}")
+    return [err for _, err in outs]
+
+
 def _build() -> Path:
     sources = sorted(SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256()
-    for s in sources:
+    for s in sorted(SRC_DIR.glob("*.cu*")):  # headers (.cuh) key the build too
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     out = BUILD_DIR / f"libhold_kernels_{digest.hexdigest()[:12]}.so"
@@ -64,23 +80,23 @@ def _build() -> Path:
         build_info.update(path=str(out), seconds=0.0, cached=True, ptxas="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *map(str, sources),
-    ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        objs = [os.path.join(work, s.stem + ".o") for s in sources]
+        # one nvcc per source, all started together
+        ptxas = _run_all([
+            [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+             "-c", str(s), "-o", o]
+            for s, o in zip(sources, objs)
+        ])
+        tmp = os.path.join(work, out.name)
+        _run_all([[_nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_info.update(
-        path=str(out), seconds=time.perf_counter() - t0, cached=False,
-        ptxas=proc.stderr,
+        path=str(out), seconds=time.perf_counter() - t0, cached=False, ptxas="".join(ptxas),
     )
     return out
 

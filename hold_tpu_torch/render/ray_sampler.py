@@ -112,13 +112,18 @@ def sample_pdf(bins, cdf, u):
 @torch.no_grad()
 def error_bound_z_vals(
     gen: torch.Generator | None,
-    sdf_fn: Callable[[torch.Tensor], torch.Tensor],  # (R,S,3) -> (R,S)
+    sdf_fn: Callable[[torch.Tensor], torch.Tensor] | None,  # (R,S,3) -> (R,S)
     ray_dirs: torch.Tensor,
     cam_loc: torch.Tensor,
     beta0,
     cfg: SamplerConfig,
+    query_z_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,  # (R,S) -> (R,S)
 ) -> torch.Tensor:
-    """Final z values per ray: (R, N_samples + 2 + N_samples_extra)."""
+    """Final z values per ray: (R, N_samples + 2 + N_samples_extra).
+
+    With ``query_z_fn`` every round's query gets the (R, S) z table itself
+    (the fused sampler kernels expand ``cam + z*dir`` inside), and the
+    (R, S, 3) point tensor is never built; ``sdf_fn`` is then unused."""
     R = ray_dirs.shape[0]
     dev = ray_dirs.device
     if cfg.inverse_sphere_bg:
@@ -130,6 +135,8 @@ def error_bound_z_vals(
     z0 = uniform_z_vals(gen, ray_dirs, cam_loc, near, far, cfg.N_samples_eval)
 
     def query(z):
+        if query_z_fn is not None:
+            return query_z_fn(z)
         pts = cam_loc[:, None, :] + z[:, :, None] * ray_dirs[:, None, :]
         return sdf_fn(pts)
 

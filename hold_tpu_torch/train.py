@@ -1,9 +1,11 @@
 """Training entry point: python -m hold_tpu_torch.train --case <seq> --no_meshing --no_vis
 
 Counterpart of hold_tpu/train.py on PyTorch: each step runs the error-bound
-sampler under ``torch.no_grad()``, then the render + loss + backward grad
-stage and one Adam step.  Adam has the reference's two learning-rate groups
-(pose tables at 0.1x lr); the object scale stays fixed.  Scalars go to
+sampler under ``torch.no_grad()`` (its queries through the fused query
+kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
+render + loss + backward grad stage and one Adam step.  Adam has the
+reference's two learning-rate groups (pose tables at 0.1x lr); the object
+scale stays fixed.  Scalars go to
 ``<log_root>/<exp_key>/metrics.jsonl`` through the JAX package's Tracker, and
 the final state to ``checkpoints/last.pt``.  Canonical meshing, validation
 renders, resume, --load_pose and --shape_init are not ported yet.
@@ -114,14 +116,16 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     opt_model = dict(cfg["model"])
     opt_model["scene_bounding_sphere"] = seq.scene_bounding_sphere
     seed = int(args.get("seed", 0))
-    scene = build_scene(opt_model, dict(args), seq.scene_data(), device)
+    scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
+                        fused_sampler=not args.get("no_fused_sampler", False))
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 
     tracker = Tracker(args.log_root, args.get("exp_key", ""), args=args, mute=args.get("mute"))
     log = tracker.logger
+    fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
     log.info(f"experiment {tracker.exp_key}: case={args.case} nodes={scene.node_ids} "
-             f"frames={seq.n_frames} device={device}")
+             f"frames={seq.n_frames} device={device} fused sampler={fused}")
 
     optimizer = optimizer_for(args, params)
     timer = StepTimer()

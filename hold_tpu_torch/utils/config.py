@@ -174,6 +174,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--log_root", type=str, default="./logs")
     p.add_argument("--seed", type=int, default=0)
+    # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
+    p.add_argument("--no_fused_sampler", action="store_true")
     return p
 
 
