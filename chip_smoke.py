@@ -10,20 +10,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. Kernel checks: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes one full-width training step gives
    it, with the tolerance stated; kernel and plain times from CUDA events
-   over enough launches to fill 100 ms.
+   over enough launches to fill 100 ms.  The render kernels run at one
+   render chunk's shapes (4096 rays x 98 samples of the eval sampler: a
+   frame's hand and object pixels, then background ones), the KNN blend
+   kernels at the sampler warp's.
 4. Agreement on a small batch: the sampler's z tables (fused query kernels
    on the card, their plain versions on the CPU), then one grad-stage loss
    and its parameter gradients, kernels on the card against the plain path
-   on the CPU.
-5. The slice: ``hold_tpu_torch.train.run_training`` on the synthetic
-   sequence (12 frames, 240x320) at full width, 10 frames x 128 rays = 1280
-   rays per step, twice: 5 steps with the fused sampler (the default), then
-   3 steps with ``--no_fused_sampler`` (the layer-by-layer sampler), every
-   kernel's launch counter set to 0 just before each.  Every loss must be
-   finite and every kernel of a path launched in its run.
+   on the CPU; then 256 hand and object rays of a frame, the card's z
+   tables given to both sides, composited maps on the card against the CPU.
+5. The training slice: ``hold_tpu_torch.train.run_training`` on the
+   synthetic sequence (12 frames, 240x320) at full width, 10 frames x 128
+   rays = 1280 rays per step, twice: 5 steps with the fused sampler (the
+   default), then 3 steps with ``--no_fused_sampler`` (the layer-by-layer
+   sampler), every kernel's launch counter set to 0 just before each.  Every
+   loss must be finite and every kernel of a path launched in its run.
+6. The render slice: ``hold_tpu_torch.render_cli`` loads the fused run's
+   checkpoint and renders two full frames at ``render_downsample`` 2
+   (120x160 = 19,200 rays, 4096 a chunk), counters at 0 just before: the
+   maps must be finite and exactly the render path's kernels launched.  Then
+   phase 3's chunk again with the chunked render shade
+   (``--no_fused_render``), whose PSNR against the fused render must reach
+   ``PSNR_FLOOR``, and one frame under torch.profiler for the device time by
+   kernel family.
 
 The last three lines of standard output are the card's name and power
-limit, one JSON object describing the kernels, and
+limit, one JSON object describing the kernels (errors, kernel and plain
+times, the bound from this run's shapes, launches per path), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
 directory that does not hold the hold_tpu_torch package, it exits non-zero
 and prints no result.
@@ -43,12 +56,15 @@ STEPS = 5
 FRAMES, IMG_HW = 12, (240, 320)
 BATCH_SIZE, RAYS_PER_FRAME = 5, 128
 LAYER_STEPS = 3
+RENDER_FRAMES, RENDER_DOWNSAMPLE, PIXEL_PER_BATCH = 2, 2, 4096
 SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point_mesh.cu",
-           "fq": "hold_tpu_torch/csrc/fused_query.cu"}
+           "fq": "hold_tpu_torch/csrc/fused_query.cu",
+           "fr": "hold_tpu_torch/csrc/fused_render.cu"}
 # kernel name -> (source, TPU kernel it replaces: file:line of the pallas_call,
-# the phase-5 runs whose path launches it: "fused" (default sampler), "layer"
-# (--no_fused_sampler)).  The point-buffer forms of the fused query are on
-# neither path, in the JAX package as here: phase 3 alone drives them.
+# the runs whose path launches it: "fused" (phase 5, default sampler),
+# "layer" (phase 5, --no_fused_sampler), "render" (phase 6)).  The
+# point-buffer forms of the fused query and the KNN blend kernels are on no
+# path, in the JAX package as here: phase 3 alone drives them.
 KERNELS = {
     "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", ("layer",)),
     "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", ("fused", "layer")),
@@ -56,11 +72,18 @@ KERNELS = {
     "knn_jacobian_inverse.fwd": ("knn", "hold_tpu/ops/knn.py:737", ("fused", "layer")),
     "knn_jacobian_inverse.bwd": ("knn", "hold_tpu/ops/knn.py:781", ("fused", "layer")),
     "min_vertex_dist": ("pm", "hold_tpu/ops/point_mesh.py:228", ("fused", "layer")),
-    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484", ("fused",)),
-    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520", ("fused",)),
+    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484", ("fused", "render")),
+    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520", ("fused", "render")),
     "fused_hand_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:389", ()),
     "fused_object_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:419", ()),
+    "fused_hand_render": ("fr", "hold_tpu/ops/fused_render.py:480", ("render",)),
+    "fused_object_render": ("fr", "hold_tpu/ops/fused_render.py:514", ("render",)),
+    "knn_blend_weights": ("knn", "hold_tpu/ops/knn.py:144", ()),
+    "knn_blend_weights_t": ("knn", "hold_tpu/ops/knn.py:254", ()),
 }
+# the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
+# bf16 tensor cores, f32 outside them, device memory
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # the fused query against its plain version: the JAX package's own bound
 # between its fused and layer-by-layer sampler (tests/test_fused_query.py),
 # |d| <= 2e-2 and mean |d| <= 4e-3, with |d| scaled by max(1, |sdf|).  Both
@@ -76,6 +99,29 @@ FQ_MAX, FQ_MEAN = 2e-2, 4e-3
 # of the object's samples beyond it, and the layer-by-layer sampler 2.2 %;
 # the kernel against the plain path on the card 0.45 %.
 Z_FAR_SHARE = 0.03
+# the render kernels against their plain versions (phase 3): sdf as FQ_MAX /
+# FQ_MEAN scaled by max(1, |sdf|), as for the query; x_c and the nearest
+# distance are computed op for op alike (1e-5).  The JAX package holds its
+# fused render to its XLA shade at rgb 3e-2 and normal p99 0.08
+# (tests/test_fused_render.py); here both sides round at the same places, so
+# the bounds are tighter: on an H100 the kernels read rgb 1.1e-4 (hand) and
+# 1.9e-3 (object), normal p99 1.1e-3 and max 7.9e-3 (hand), 1.5e-2 (object),
+# on the frame's first 4096 pixels.  A normal's error grows as |dSDF/dx|
+# shrinks, hence the looser max.
+RENDER_RGB, RENDER_NRM_P99, RENDER_NRM_MAX = 1e-2, 1e-2, 0.1
+# one render chunk, card against CPU (phase 4), on the composited maps: the
+# per-sample rgb bound integrated over a ray stays under it; normals are
+# averaged unit vectors; the mask and depth move with the density, which
+# moves with the sdf's bf16 steps
+RENDER_MAP_TOL = {"rgb": 3e-2, "mask_prob": 3e-2, "normal": 8e-2, "depth": 3e-2}
+# the rays of the render checks are the pixels the ground-truth mask marks
+# as hand or object; their composited mask_prob must reach this, or the
+# check would compare background
+MASK_FLOOR = 0.5
+# the fused render against the chunked f32 render shade (phase 6): a render
+# whose every pixel were off by the JAX package's per-sample rgb bound
+# between the two, 3e-2, would score 20 log10(1 / 3e-2) = 30.5 dB
+PSNR_FLOOR = 30.0
 
 
 def phase(name: str) -> None:
@@ -100,6 +146,44 @@ def cuda_ms(torch, fn, fill_ms: float = 100.0, max_reps: int = 5000) -> float:
     fn()
     once = timed(1)
     return timed(min(max(3, math.ceil(fill_ms / max(once, 1e-3))), max_reps))
+
+
+def bound(tc_flops: float, f32_flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the largest of the tensor-core
+    operations at the bf16 peak, the other operations at the f32 peak (the
+    two pipes run at once) and the bytes moved (each input read once, each
+    output written once) at the memory rate.  Operations count what the
+    function needs, not a kernel's zero pads."""
+    ops_ms = max(tc_flops / PEAK_BF16, f32_flops / PEAK_F32) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "tc_flops": tc_flops, "f32_flops": f32_flops, "bytes": nbytes}
+
+
+def knn_cost(n_pts: int, V: int, J: int, K: int = 15) -> float:
+    """f32 operations a point of one KNN blend: two sweeps over V vertices
+    (a distance of 9 operations and one comparison each), the exponential
+    and J multiply-adds of the K vertices blended, the normalisation."""
+    return n_pts * (2 * 10.0 * V + K * (2 * J + 2) + J)
+
+
+def frame_bytes(B: int, V: int, J: int) -> float:
+    """Per-frame inputs of a hand kernel: vertices, skinning weights, bones."""
+    return B * (V * 12.0 + V * J * 4.0 + J * 64.0)
+
+
+def kernel_label(ptxas_line: str) -> str:
+    """'fused_render_kernel<true>' from ptxas's line naming a mangled entry
+    function."""
+    import re
+
+    m = re.search(r"([a-z_]+_kernel)(I(?:Lb[01]E)+E)?", ptxas_line)
+    if not m:
+        return ptxas_line.strip()
+    args = re.findall(r"Lb([01])E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join('true' if a == '1' else 'false' for a in args)}>"
+                         if args else "")
 
 
 def max_err(a, b) -> float:
@@ -189,11 +273,15 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     rng = torch.Generator(dev).manual_seed(1)
     results = {}
 
-    def record(name, err, ms, plain_ms, shape, **extra):
+    def record(name, err, ms, plain_ms, shape, cost, **extra):
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": shape,
-                         **extra}
-        print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"{extra or ''}", flush=True)
+                         "library_ms": None, **cost, **extra}
+        print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}) {extra or ''}", flush=True)
+
+    V, J = verts.shape[1], skin.shape[2]
+    n_s, n_g = pts_s.shape[0] * pts_s.shape[1], pts_g.shape[0] * pts_g.shape[1]
+    fbytes = frame_bytes(B, V, J)
 
     # 1: sampler warp, one error-bound round of 128 samples on 1280 rays
     got_x, got_o = knn.knn_inverse_warp(pts_s, verts, skin, tfs)
@@ -204,7 +292,8 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     record("knn_inverse_warp", err,
            cuda_ms(torch, lambda: knn.knn_inverse_warp(pts_s, verts, skin, tfs)),
            cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_s, verts, skin, tfs)),
-           f"B={B} P={pts_s.shape[1]} V={verts.shape[1]}")
+           f"B={B} P={pts_s.shape[1]} V={verts.shape[1]}",
+           bound(0, knn_cost(n_s, V, J) + n_s * (24 * J + 45), n_s * 25 + fbytes))
 
     # 2: grad-stage warp, 98 samples on 1280 rays, forward and backward
     pts_r = pts_g.clone().requires_grad_(True)
@@ -225,13 +314,16 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     record("knn_inverse_warp_diff.fwd", err_f,
            cuda_ms(torch, lambda: knn._warp_fwd_cuda(pts_g, verts, skin, tfs, 15, 0.1, True,
                                                      "knn_inverse_warp_diff.fwd")),
-           cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_g, verts, skin, tfs)), shape)
+           cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_g, verts, skin, tfs)), shape,
+           bound(0, knn_cost(n_g, V, J) + n_g * (24 * J + 45),
+                 n_g * (25 + 36 + 4 * J) + fbytes))
     _, _, inv, wb = knn._warp_fwd_cuda(pts_g, verts, skin, tfs, 15, 0.1, True,
                                        "knn_inverse_warp_diff.fwd")
     record("knn_inverse_warp_diff.bwd", max(err_p, err_t),
            cuda_ms(torch, lambda: knn._warp_bwd_cuda(g, inv, got_x.detach(), wb)),
            cuda_ms(torch, lambda: torch.autograd.grad(ref_x, (pts_r, tfs_r), g,
-                                                      retain_graph=True)), shape)
+                                                      retain_graph=True)), shape,
+           bound(0, n_g * (30 + 24 * J), n_g * (72 + 4 * J) + B * J * 64))
 
     # 3: inverse skinning Jacobian at the canonical points
     xc = got_x.detach().contiguous()
@@ -245,30 +337,33 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     err_t = check_close("knn_jacobian_inverse d/dtfs", got_jt, ref_jt, 2e-5, 1e-5)
     record("knn_jacobian_inverse.fwd", err_f,
            cuda_ms(torch, lambda: knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15)),
-           cuda_ms(torch, lambda: knn.jacobian_inverse_plain(xc, verts_c, skin, tfs)), shape)
+           cuda_ms(torch, lambda: knn.jacobian_inverse_plain(xc, verts_c, skin, tfs)), shape,
+           bound(0, knn_cost(n_g, V, J) + n_g * (18 * J + 30), n_g * (48 + 4 * J) + fbytes))
     inv_j, wb_j = knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15)
     record("knn_jacobian_inverse.bwd", err_t,
            cuda_ms(torch, lambda: knn._jinv_bwd_cuda(gj, inv_j, wb_j)),
            cuda_ms(torch, lambda: torch.autograd.grad(ref_j, tfs_r, gj, retain_graph=True)),
-           shape)
+           shape, bound(0, n_g * (108 + 18 * J), n_g * (72 + 4 * J) + B * J * 64))
 
     # 4: min vertex distance, hand (subdivided mesh) and object (far-padded
     # empty mesh state with real vertices in the first rows)
     cano = xc.reshape(-1, 3)
     M_sub = scene.sub_ops["right"][0]
     v_div = (M_sub @ srv_out.v_posed[0]).detach().contiguous()
-    bound = empty_object_mesh_state(dev)["bound_centers"].clone()
+    bound_v = empty_object_mesh_state(dev)["bound_centers"].clone()
     n_obj = server.verts_c.shape[1]
-    bound[:n_obj] = server.verts_c[0] * 2.0
+    bound_v[:n_obj] = server.verts_c[0] * 2.0
     errs = []
-    for label, vv in (("hand", v_div), ("object", bound)):
+    for label, vv in (("hand", v_div), ("object", bound_v)):
         got = point_mesh.min_vertex_dist_fast(cano, vv)
         ref = point_mesh.min_vertex_dist(cano, vv)
         errs.append(check_close(f"min_vertex_dist {label} (V={vv.shape[0]})", got, ref, 1e-5, 1e-4))
     record("min_vertex_dist", max(errs),
-           cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(cano, bound)),
-           cuda_ms(torch, lambda: point_mesh.min_vertex_dist(cano, bound)),
-           f"P={cano.shape[0]} V={bound.shape[0]}")
+           cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(cano, bound_v)),
+           cuda_ms(torch, lambda: point_mesh.min_vertex_dist(cano, bound_v)),
+           f"P={cano.shape[0]} V={bound_v.shape[0]}",
+           bound(0, cano.shape[0] * bound_v.shape[0] * 10.0,
+                 (cano.shape[0] + bound_v.shape[0]) * 12.0 + cano.shape[0] * 4))
 
     # 5, 6, 12, 13: the fused sampler query, on the first round's 128
     # samples of 1280 rays (z forms) and the same points as a buffer; the
@@ -289,27 +384,147 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     obj = (tf12, windows["object"], packs["object"])
     rays = (ray_dirs.contiguous(), cam_loc.contiguous(), z_t)
     pts_b = fq.points_from_rays_z(*rays)
+    wbytes = fq.W_TOTAL * 2.0 + fq.F_TOTAL * 4.0
+    act = 8 * 256 * 8.0  # softplus100 a hidden unit: f32 operations
+    hand_f32 = knn_cost(1, V, J) + 24 * J + 45  # a point of the hand's warp
     cases = (
         ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays, *hand),
-         lambda: fq.hand_query_plain(pts_b, *hand).reshape(z_t.shape), f"B={B} P={P} S={S}"),
+         lambda: fq.hand_query_plain(pts_b, *hand).reshape(z_t.shape), f"B={B} P={P} S={S}",
+         act + hand_f32, 8.0, wbytes + fbytes + B * P * 24),
         ("fused_object_sampler_sdf_z", lambda: fq.fused_object_sampler_sdf_z(*rays, *obj),
-         lambda: fq.object_query_plain(pts_b, *obj).reshape(z_t.shape), f"B={B} P={P} S={S}"),
+         lambda: fq.object_query_plain(pts_b, *obj).reshape(z_t.shape), f"B={B} P={P} S={S}",
+         act + 24, 8.0, wbytes + B * P * 24),
         ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_s, *hand),
-         lambda: fq.hand_query_plain(pts_s, *hand), f"B={B} N={pts_s.shape[1]}"),
+         lambda: fq.hand_query_plain(pts_s, *hand), f"B={B} N={pts_s.shape[1]}",
+         act + hand_f32, 16.0, wbytes + fbytes),
         ("fused_object_sampler_sdf", lambda: fq.fused_object_sampler_sdf(pts_s, *obj),
-         lambda: fq.object_query_plain(pts_s, *obj), f"B={B} N={pts_s.shape[1]}"),
+         lambda: fq.object_query_plain(pts_s, *obj), f"B={B} N={pts_s.shape[1]}",
+         act + 24, 16.0, wbytes),
     )
-    for name, kern, plain, shape in cases:
+    for name, kern, plain, shape, f32_pp, bytes_pp, bytes_once in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: shape {tuple(got.shape)} or non-finite values")
         err = check_bf16_query(name, got, ref)
         ms = cuda_ms(torch, kern)
+        n = got.numel()
         record(name, err, ms, cuda_ms(torch, plain), shape,
+               bound(2.0 * fq.TRUNK_MACS * n, f32_pp * n, bytes_pp * n + bytes_once),
                mean_abs_err=float((got - ref).abs().mean()),
-               trunk_tflop_s=fq.TRUNK_FLOPS_PER_POINT * got.numel() / (ms * 1e-3) / 1e12)
+               trunk_tflop_s=fq.TRUNK_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
+
+    # 10, 11: the KNN blend kernels at the sampler warp's shape
+    for name, fn in (("knn_blend_weights", knn.knn_blend_weights),
+                     ("knn_blend_weights_t", knn.knn_blend_weights_t)):
+        got_w, got_o = fn(pts_s, verts, skin)
+        ref_w, ref_o = knn.blend_weights_plain(pts_s, verts, skin)
+        if name.endswith("_t"):
+            ref_w = ref_w.transpose(1, 2)
+        err = check_close(f"{name} weights", got_w, ref_w, 1e-5, 1e-5)
+        if not torch.equal(got_o, ref_o):
+            raise AssertionError(f"{name}: outlier mask differs")
+        record(name, err, cuda_ms(torch, lambda: fn(pts_s, verts, skin)),
+               cuda_ms(torch, lambda: knn.blend_weights_plain(pts_s, verts, skin)),
+               f"B={B} P={pts_s.shape[1]} V={V}",
+               bound(0, knn_cost(n_s, V, J), n_s * (13 + 4 * J) + B * V * (12 + 4 * J)))
+
+    render_checks(torch, seq, scene, params, dev, record)
     return results
+
+
+def render_batch(torch, seq, dev, n_rays):
+    """``n_rays`` pixels of frame 0 at RENDER_DOWNSAMPLE, as one chunk of the
+    renderer: those that the ground-truth mask marks as hand or object
+    (evenly spaced when there are more), then background pixels evenly
+    spaced to fill, in the frame's order.  Returns (batch, pixel indices)."""
+    import numpy as np
+
+    from hold_tpu_torch.train import batch_to_device
+
+    fb = seq.full_frame_batch(0, downsample=RENDER_DOWNSAMPLE)
+
+    def spaced(ix, n):
+        return ix[np.linspace(0, len(ix) - 1, n).round().astype(int)] if n < len(ix) else ix
+
+    fg = spaced(np.flatnonzero(fb["gt_mask"] > 0), n_rays)
+    pix = np.sort(np.concatenate([fg, spaced(np.flatnonzero(fb["gt_mask"] == 0),
+                                             n_rays - len(fg))]))
+    batch = batch_to_device({k: fb[k] for k in ("frame_idx", "intrinsics", "extrinsics",
+                                                  "scene_scale")}, dev)
+    batch["uv"] = torch.as_tensor(np.asarray(fb["uv"])[:, pix], device=dev)
+    return batch, pix
+
+
+def render_checks(torch, seq, scene, params, dev, record) -> None:
+    """Phase 3, rows 8 and 9: the fused render kernels against their plain
+    versions at one render chunk's real points."""
+    from hold_tpu_torch.models.holdnet import _rays, sample_all_z
+    from hold_tpu_torch.models.mlp import _apply_linear, resolve_weight_norm
+    from hold_tpu_torch.models.nodes import _mano_pose, _object_pose, node_render_packs
+    from hold_tpu_torch.ops import fused_query as fq
+    from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.utils.transforms import inverse_mat3
+
+    batch, _ = render_batch(torch, seq, dev, PIXEL_PER_BATCH)
+    ray_dirs, cam_loc = _rays(batch)
+    z = sample_all_z(params, scene, batch, None, None, None)
+    B = 1
+    inputs = {}
+    with torch.no_grad():
+        for nid in ("right", "object"):
+            rend = resolve_weight_norm(params[nid]["rendering"])
+            pts = (cam_loc[:, None] + z[nid][..., None] * ray_dirs[:, None]).reshape(1, -1, 3)
+            packs = node_render_packs(params[nid], scene.plans[nid], dev)
+            if nid == "right":
+                srv = scene.servers[nid]
+                out, cond = _mano_pose(params[nid], srv, batch, None)
+                frame = (out.verts.contiguous(), srv.verts_c.expand(B, -1, -1).contiguous(),
+                         srv.skin_weights_c.expand(B, -1, -1).contiguous(), out.tfs.contiguous())
+                fb0 = fr.frame_bias0(rend, _apply_linear(rend["lin_pose"], cond))
+            else:
+                tfs = _object_pose(params[nid], scene.servers[nid], batch).obj_tfs
+                frame = (torch.cat([inverse_mat3(tfs[:, :3, :3]).reshape(B, 9), tfs[:, :3, 3]],
+                                   -1).contiguous(),)
+                tc = params[nid]["frame_latent"][batch["frame_idx"]]
+                fb0 = fr.frame_bias0(rend, torch.zeros((B, 8), device=dev), tc)
+            inputs[nid] = (pts.contiguous(), *frame, *packs, fb0.detach())
+    V, J = inputs["right"][1].shape[1], inputs["right"][3].shape[2]
+    wbytes = ((fq.W_TOTAL + fr.T_TOTAL + fr.C_TOTAL) * 2.0
+              + (fq.F_TOTAL + fr.CB_TOTAL + 256) * 4.0)
+    act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
+    for name, nid, kern, plain, f32_pp, bytes_once in (
+        ("fused_hand_render", "right", fr.fused_hand_render, fr.hand_render_plain,
+         act + 2 * knn_cost(1, V, J) + 42 * J + 75, wbytes + frame_bytes(B, V, J) + B * V * 12),
+        ("fused_object_render", "object", fr.fused_object_render, fr.object_render_plain,
+         act + 24, wbytes + 48),
+    ):
+        args = inputs[nid]
+        got, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"{name}: shape {tuple(g.shape)} or non-finite values")
+        err = check_bf16_query(f"{name} sdf", got[0], ref[0])
+        errs = {"sdf": err}
+        errs["x_c"] = check_close(f"{name} x_c", got[4], ref[4], 1e-5, 1e-5)
+        errs["dist"] = check_close(f"{name} dist", got[3], ref[3], 0.0, 1e-5)
+        errs["rgb"] = check_close(f"{name} rgb", got[1], ref[1], 0.0, RENDER_RGB)
+        d_n = (got[2] - ref[2]).abs().flatten()
+        p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
+        ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
+        print(f"  {name} normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max {n_max:.3e} "
+              f"(tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: normals disagree with the plain version")
+        n = got[0].numel()
+        ms = cuda_ms(torch, lambda: kern(*args))
+        record(name, max(errs.values()), ms, cuda_ms(torch, lambda: plain(*args), fill_ms=0.0),
+               f"B={B} N={n} ({PIXEL_PER_BATCH} rays x {n // PIXEL_PER_BATCH} samples)",
+               bound(2.0 * fr.RENDER_MACS * n, f32_pp * n, 56.0 * n + bytes_once),
+               errors=errs, mean_abs_err=float((got[0] - ref[0]).abs().mean()),
+               normal_p99=p99, max_abs_sdf=float(ref[0].abs().max()),
+               tflop_s=fr.RENDER_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
 
 
 def agreement_check(torch, seq, args, cfg, dev) -> None:
@@ -381,24 +596,59 @@ def agreement_check(torch, seq, args, cfg, dev) -> None:
           f"{len(bad)} outside", flush=True)
     if bad:
         raise AssertionError(f"gradients disagree: {bad[:8]}")
+    render_agreement(torch, seq, args, cfg, dev, params0)
+
+
+def render_agreement(torch, seq, args, cfg, dev, params0) -> None:
+    """Phase 4, render: one chunk of 256 hand and object rays, the card's
+    eval z tables given to both sides, holdnet_render with the fused render
+    kernels on the card against their plain versions on the CPU, on the
+    composited maps.  The rays' mean mask_prob must reach MASK_FLOOR, so
+    that the maps compared carry the nodes' shade."""
+    from hold_tpu_torch.models.holdnet import build_scene, holdnet_render, sample_all_z
+    from hold_tpu_torch.utils.convert import leaf_params
+
+    maps, z_vals = {}, None
+    for device in (dev, torch.device("cpu")):
+        scene = build_scene(dict(cfg["model"]), dict(args), seq.scene_data(), device)
+        if not all(p.fused_render for p in scene.plans.values()):
+            raise AssertionError("the slice's render shade is not the fused one")
+        params = leaf_params(params0, device)
+        batch, _ = render_batch(torch, seq, device, 256)
+        if z_vals is None:
+            z_vals = sample_all_z(params, scene, batch, None, None, None)
+        out = holdnet_render(params, scene, batch, {k: v.to(device) for k, v in z_vals.items()})
+        maps[device.type] = {k: out[k].cpu() for k in RENDER_MAP_TOL}
+    mask = float(maps["cuda"]["mask_prob"].mean())
+    print(f"  render rays: mean mask_prob {mask:.4f} (floor {MASK_FLOOR}) "
+          f"{'ok' if mask >= MASK_FLOOR else 'FAIL'}", flush=True)
+    if mask < MASK_FLOOR:
+        raise AssertionError("the compared render rays miss the hand and the object")
+    for k, tol in RENDER_MAP_TOL.items():
+        d = max_err(maps["cuda"][k], maps["cpu"][k])
+        print(f"  render {k}: max |card - cpu| {d:.3e} (tol {tol:g}) "
+              f"{'ok' if d <= tol else 'FAIL'}", flush=True)
+        if not (d <= tol and bool(torch.isfinite(maps["cuda"][k]).all())):
+            raise AssertionError(f"render {k}: card and CPU disagree")
 
 
 def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
     """Phase 5, one run: ``run_training`` from counters at 0; checks the
     losses and that this path launched each of its kernels.  Returns the
     launch counts."""
-    from hold_tpu_torch.ops import fused_query, knn, point_mesh
+    from hold_tpu_torch.ops import fused_query, fused_render, knn, point_mesh
     from hold_tpu_torch.train import run_training
 
     path = "layer" if args.get("no_fused_sampler") else "fused"
     print(f"  -- {path} sampler: {steps} steps", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in (knn, point_mesh, fused_query):
+    mods = (knn, point_mesh, fused_query, fused_render)
+    for mod in mods:
         mod.reset_launch_counts()
     _, scene, _, tracker, timer = run_training(args, cfg, seq=seq, max_steps=steps, device=dev)
     torch.cuda.synchronize()
-    launches = {**knn.LAUNCHES, **point_mesh.LAUNCHES, **fused_query.LAUNCHES}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
     if fused != (list(scene.node_ids) if path == "fused" else []):
@@ -427,6 +677,112 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
     print(f"  rays_per_s {rays / step_s:.1f} ({rays} rays per step, steps 1..{steps - 1})")
     print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)", flush=True)
     return launches
+
+
+def render_slice(torch, seq, data_root, args, dev) -> dict:
+    """Phase 6: render_cli on the fused run's checkpoint, from counters at 0;
+    checks the maps and the launches, prints the frame times; then one chunk
+    with the chunked render shade, held to PSNR_FLOOR.  Returns the counts."""
+    import numpy as np
+
+    from hold_tpu_torch import render_cli
+    from hold_tpu_torch.ops import fused_query, fused_render, knn, point_mesh
+    from hold_tpu_torch.render.renderer import make_chunk_renderer
+    from hold_tpu_torch.utils.checkpoint import load_experiment
+
+    exp = os.path.join(args["log_root"], args["exp_key"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mods = (knn, point_mesh, fused_query, fused_render)
+    for mod in mods:
+        mod.reset_launch_counts()
+    records = render_cli.main([
+        "--exp", exp, "--case", "synthetic", "--data_root", data_root,
+        "--render_downsample", str(RENDER_DOWNSAMPLE), "--pixel_per_batch", str(PIXEL_PER_BATCH),
+        "--num_agents", str(FRAMES // RENDER_FRAMES), "--agent_id", "0",
+        "--out", os.path.join(args["log_root"], "renders"),
+        "--export_root", os.path.join(args["log_root"], "exports"), "--device", dev.type,
+    ])
+    torch.cuda.synchronize()
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if len(records) != RENDER_FRAMES:
+        raise AssertionError(f"rendered {len(records)} frames, expected {RENDER_FRAMES}")
+    for rec in records:
+        res = rec["res"]
+        bad = [k for k, v in res.items() if not np.isfinite(v).all()]
+        if bad or res["rgb"].shape[:2] != (IMG_HW[0] // RENDER_DOWNSAMPLE,
+                                           IMG_HW[1] // RENDER_DOWNSAMPLE):
+            raise AssertionError(f"frame {rec['idx']}: non-finite {bad} or shape "
+                                 f"{res['rgb'].shape}")
+        rays = res["rgb"].shape[0] * res["rgb"].shape[1]
+        ph = rec["phases"]
+        print(f"  frame {rec['idx']}: render_ms {rec['seconds'] * 1e3:.3f} (sampler "
+              f"{ph['sampler'] * 1e3:.3f}, shade {ph['shade'] * 1e3:.3f}), rays_per_s "
+              f"{rays / rec['seconds']:.1f} ({rays} rays, mask mean "
+              f"{float(res['mask_prob'].mean()):.4f})", flush=True)
+    print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)")
+    print(f"  launches: {launches}")
+    missing = [k for k, (_, _, paths) in KERNELS.items() if "render" in paths and launches[k] == 0]
+    stray = [k for k, (_, _, paths) in KERNELS.items() if "render" not in paths and launches[k]]
+    if missing or stray:
+        raise AssertionError(f"render run: not launched {missing}, launched off its path {stray}")
+
+    params, scene = load_experiment(exp, seq, dev, fused_render=False)
+    batch, pix = render_batch(torch, seq, dev, PIXEL_PER_BATCH)
+    layer = make_chunk_renderer(scene)(params, batch)
+    res0 = records[0]["res"]  # frame 0
+    mse = float(np.mean((layer["rgb"].cpu().numpy() - res0["rgb"].reshape(-1, 3)[pix]) ** 2))
+    psnr = -10.0 * math.log10(max(mse, 1e-20))
+    d_n = np.abs(layer["normal"].cpu().numpy() - res0["normal"].reshape(-1, 3)[pix])
+    mask = float(layer["mask_prob"].mean())
+    ok = psnr >= PSNR_FLOOR and mask >= MASK_FLOOR
+    print(f"  one chunk (hand and object pixels first), fused render vs chunked f32 shade: "
+          f"rgb PSNR {psnr:.2f} dB (floor {PSNR_FLOOR}); mean mask_prob {mask:.4f} (floor "
+          f"{MASK_FLOOR}) {'ok' if ok else 'FAIL'}; normal map |d| max {d_n.max():.3e} mean "
+          f"{d_n.mean():.3e}", flush=True)
+    if not ok:
+        raise AssertionError("the fused render disagrees with the chunked render shade, or "
+                             "the chunk misses the hand and the object")
+    render_profile(torch, seq, exp, dev, sum(r["seconds"] for r in records) / len(records))
+    return launches
+
+
+def render_profile(torch, seq, exp: str, dev, frame_s: float) -> None:
+    """Phase 6, report only: one more frame of the fused render under
+    torch.profiler; device time and launches by kernel family, and the busy
+    share, device time over ``frame_s`` (the unprofiled frames' mean wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hold_tpu_torch.render.renderer import make_chunk_renderer, render_frame
+    from hold_tpu_torch.utils.checkpoint import load_experiment
+
+    params, scene = load_experiment(exp, seq, dev)
+    fb = seq.full_frame_batch(0, downsample=RENDER_DOWNSAMPLE)
+    chunk_fn = make_chunk_renderer(scene)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        render_frame(params, scene, fb, PIXEL_PER_BATCH, chunk_fn)
+        torch.cuda.synchronize()
+    fams = {k: [0.0, 0] for k in ("fused_render", "fused_query", "gemm", "memcpy", "other")}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        fam = next((f for f, keys in (("fused_render", ("fused_render_kernel",)),
+                                      ("fused_query", ("fused_query_kernel",)),
+                                      ("gemm", ("gemm", "xmma", "cutlass")),
+                                      ("memcpy", ("memcpy", "memset")))
+                    if any(k in name for k in keys)), "other")
+        fams[fam][0] += e.time_range.elapsed_us() / 1e3
+        fams[fam][1] += 1
+    total = sum(ms for ms, _ in fams.values())
+    if not total:
+        print("  device split of a frame: not measured (the profiler saw no device events)")
+        return
+    split = ", ".join(f"{k} {ms:.3f} ms / {n} launches" for k, (ms, n) in fams.items())
+    print(f"  device split of a frame (torch.profiler): {split}; device total {total:.3f} ms, "
+          f"busy share {total / (frame_s * 1e3):.3f} of the {frame_s * 1e3:.3f} ms frame",
+          flush=True)
 
 
 def main() -> int:
@@ -461,14 +817,18 @@ def main() -> int:
     _cuda.lib()
     info = _cuda.build_info
     print(f"  {info['path']}: {info['seconds']:.1f} s ({'cached' if info['cached'] else 'built'})")
+    kernel = "?"
     for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            kernel = kernel_label(line)
+        elif "registers" in line or "spill" in line:
+            print(f"  {kernel}: {line.split('info    :')[-1].strip()}")
 
     from hold_tpu_torch.data.dataset import SequenceData
     from hold_tpu_torch.data.synthetic import generate_sequence
 
-    built = generate_sequence(None, FRAMES, IMG_HW)
+    data_root = os.path.join(ROOT, "logs", "chip_smoke", "data")
+    built = generate_sequence(os.path.join(data_root, "synthetic"), FRAMES, IMG_HW)
     seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=RAYS_PER_FRAME)
     args, cfg = slice_config()
 
@@ -487,6 +847,10 @@ def main() -> int:
                                             "exp_key": "chip_smoke_layer"}),
                            cfg, dev, LAYER_STEPS),
     }
+
+    phase(f"6 the render slice: render_cli, {RENDER_FRAMES} frames at render_downsample "
+          f"{RENDER_DOWNSAMPLE}")
+    launches["render"] = render_slice(torch, seq, data_root, args, dev)
     print(f"  total {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -497,8 +861,10 @@ def main() -> int:
             "launches": launches[paths[0]][name] if paths else 0,
             "path": paths[0] if paths else None,
             "launches_by_path": {k: v[name] for k, v in launches.items()},
-            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "shape")},
-            **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s") if k in r},
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape")},
+            **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
+                                 "normal_p99") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

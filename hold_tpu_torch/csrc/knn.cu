@@ -76,24 +76,46 @@ knn_jinv_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ ver
     float wb[JMAX];
     knn_blend(s_verts, V, w + (size_t)b * V * J, J, K, pts[3 * q], pts[3 * q + 1],
               pts[3 * q + 2], wb);
-    float R[9];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int m = 0; m < 3; ++m) {
-            float s = 0.0f;
-#pragma unroll
-            for (int j = 0; j < JMAX; ++j)
-                if (j < J) s += wb[j] * s_tf[j * 16 + 4 * i + m];
-            R[3 * i + m] = s;
-        }
     float inv[9];
-    inv3(R, inv);
+    blend_jacobian_inverse(wb, s_tf, J, inv);
 #pragma unroll
     for (int c = 0; c < 9; ++c) inv_out[9 * q + c] = inv[c];
 #pragma unroll
     for (int j = 0; j < JMAX; ++j)
         if (j < J) wb_out[q * J + j] = wb[j];
+}
+
+// Replaces hold_tpu/ops/knn.py knn_blend_weights_pallas (knn.py:144)
+// [TRANSPOSED=false, weights (B,P,J)] and knn_blend_weights_t (knn.py:254)
+// [TRANSPOSED=true, weights (B,J,P)]: the blended skinning weights and the
+// outlier mask, stop-gradient.  Bound and design as knn_warp_fwd_kernel; the
+// transposed form writes each joint's row with consecutive threads on
+// consecutive points.
+template <bool TRANSPOSED>
+__global__ void __launch_bounds__(BLOCK)
+knn_blend_kernel(const float* __restrict__ pts, const float* __restrict__ verts,
+                 const float* __restrict__ w, float* __restrict__ wout,
+                 unsigned char* __restrict__ outlier, int P, int V, int J, int K,
+                 float max_dist) {
+    extern __shared__ float4 s_verts[];
+    __shared__ float s_tf[JMAX * 16];
+    const int b = blockIdx.y;
+    stage_frame(verts + (size_t)b * V * 3, nullptr, V, 0, s_verts, s_tf);
+    const int p = blockIdx.x * BLOCK + threadIdx.x;
+    if (p >= P) return;
+    const size_t q = (size_t)b * P + p;
+    float wb[JMAX];
+    const float dmin = knn_blend(s_verts, V, w + (size_t)b * V * J, J, K, pts[3 * q],
+                                 pts[3 * q + 1], pts[3 * q + 2], wb);
+#pragma unroll
+    for (int j = 0; j < JMAX; ++j)
+        if (j < J) {
+            if (TRANSPOSED)
+                wout[((size_t)b * J + j) * P + p] = wb[j];
+            else
+                wout[q * J + j] = wb[j];
+        }
+    outlier[q] = sqrtf(fminf(dmin, CLAMP)) > max_dist ? 1 : 0;
 }
 
 // Block reduction of sum_points G[c] * wb[j] into dtfs[b, j, c/4, c%4]
@@ -239,6 +261,30 @@ int hold_knn_warp_fwd(const void* pts, const void* verts, const void* w, const v
         knn_warp_fwd_kernel<false><<<grid, BLOCK, smem, s>>>(
             (const float*)pts, (const float*)verts, (const float*)w, (const float*)tfs,
             (float*)xc, (unsigned char*)outlier, nullptr, nullptr, P, V, J, K, max_dist);
+    }
+    return cudaGetLastError();
+}
+
+// pts (B,P,3), verts (B,V,3), w (B,V,J) -> weights (B,P,J), or (B,J,P) with
+// transposed != 0, and outlier (B,P) u8.
+int hold_knn_blend(const void* pts, const void* verts, const void* w, void* wout, void* outlier,
+                   int B, int P, int V, int J, int K, float max_dist, int transposed,
+                   void* stream) {
+    if (P == 0 || B == 0) return cudaSuccess;
+    const size_t smem = (size_t)V * sizeof(float4);
+    const dim3 grid((P + BLOCK - 1) / BLOCK, B);
+    cudaStream_t s = (cudaStream_t)stream;
+    cudaError_t err;
+    if (transposed) {
+        if ((err = allow_smem(knn_blend_kernel<true>, smem)) != cudaSuccess) return err;
+        knn_blend_kernel<true><<<grid, BLOCK, smem, s>>>(
+            (const float*)pts, (const float*)verts, (const float*)w, (float*)wout,
+            (unsigned char*)outlier, P, V, J, K, max_dist);
+    } else {
+        if ((err = allow_smem(knn_blend_kernel<false>, smem)) != cudaSuccess) return err;
+        knn_blend_kernel<false><<<grid, BLOCK, smem, s>>>(
+            (const float*)pts, (const float*)verts, (const float*)w, (float*)wout,
+            (unsigned char*)outlier, P, V, J, K, max_dist);
     }
     return cudaGetLastError();
 }

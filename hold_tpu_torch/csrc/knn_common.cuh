@@ -1,5 +1,6 @@
-// KNN skinning-weight blend shared by the deformer kernels (knn.cu) and the
-// fused sampler query (fused_query.cu).  Both must see bit-identical squared
+// KNN skinning-weight blend shared by the deformer kernels (knn.cu), the
+// fused sampler query (fused_query.cu) and the fused render
+// (fused_render.cu).  All of them must see bit-identical squared
 // distances: the K-th smallest distinct d2 often falls inside a cluster of
 // distances equal up to rounding, so every d2 is evaluated here, once, with
 // round-to-nearest intrinsics and no FMA contraction.
@@ -146,6 +147,24 @@ __device__ __forceinline__ void inverse_skin(const float* wb, const float* s_tf,
 #pragma unroll
     for (int i = 0; i < 3; ++i)
         xc[i] = inv[3 * i] * d0 + inv[3 * i + 1] * d1 + inv[3 * i + 2] * d2;
+}
+
+// Inverse skinning Jacobian of one point: J = sum_j wb_j R_j (the rotation
+// blocks of the bone transforms), inv = J^-1 row-major.
+__device__ __forceinline__ void blend_jacobian_inverse(const float* wb, const float* s_tf, int J,
+                                                       float* inv) {
+    float R[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+            float s = 0.0f;
+#pragma unroll
+            for (int j = 0; j < JMAX; ++j)
+                if (j < J) s += wb[j] * s_tf[j * 16 + 4 * i + m];
+            R[3 * i + m] = s;
+        }
+    inv3(R, inv);
 }
 
 }  // namespace

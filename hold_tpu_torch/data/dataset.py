@@ -1,5 +1,5 @@
 """Sequence dataset: frames + cameras + weighted pixel sampling + tempo
-batches (counterpart of hold_tpu/data/dataset.py).
+batches + full-frame render batches (counterpart of hold_tpu/data/dataset.py).
 
 Host-side numpy, with the JAX package's sampling semantics: 90% of a frame's
 rays inside the hand/object mask bounding boxes (split evenly), 10% uniform,
@@ -17,7 +17,7 @@ import os
 import numpy as np
 from scipy.linalg import rq
 
-from hold_tpu.models.specs import SEGM_IDS
+from ..models.specs import SEGM_IDS
 
 
 def load_K_Rt_from_P(P: np.ndarray):
@@ -160,6 +160,25 @@ class SequenceData:
             "scene_scale": np.float32(self.scale),
         }
 
+    def full_frame_batch(self, idx: int, downsample: int = 1) -> dict:
+        """All pixels of one frame, strided by ``downsample``, for full
+        renders: uv (1, HW, 2) as (x, y), gt_rgb (HW, 3), gt_mask (HW,),
+        the frame's cameras and ``img_hw``."""
+        H, W = self.img_size
+        ys, xs = np.mgrid[0:H:downsample, 0:W:downsample]
+        uv = np.stack([xs, ys], axis=-1).reshape(1, -1, 2).astype(np.float32)
+        img, mask = self.load_frame(idx)
+        return {
+            "frame_idx": np.asarray([idx], np.int32),
+            "uv": uv,
+            "gt_rgb": img[::downsample, ::downsample].reshape(-1, 3).astype(np.float32),
+            "gt_mask": mask[::downsample, ::downsample].reshape(-1).astype(np.float32),
+            "intrinsics": self.intrinsics_all[idx][None],
+            "extrinsics": self.extrinsics_all[idx][None],
+            "scene_scale": np.float32(self.scale),
+            "img_hw": (ys.shape[0], ys.shape[1]),
+        }
+
     def scene_data(self) -> dict:
         return {
             "entities": self.entities,
@@ -167,3 +186,8 @@ class SequenceData:
             "n_frames": self.n_frames,
             "scene_bounding_sphere": self.scene_bounding_sphere,
         }
+
+
+def test_frame_split(n_frames: int, num_agents: int, agent_id: int) -> list[int]:
+    """The frames of one of ``num_agents`` render jobs (contiguous chunks)."""
+    return np.array_split(np.arange(n_frames), num_agents)[agent_id].tolist()

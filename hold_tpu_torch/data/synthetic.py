@@ -17,7 +17,7 @@ import os
 import numpy as np
 import torch
 
-from hold_tpu.utils.mesh import SEAL_CIRCLE_V_ID, seal_mano_faces
+from ..utils.mesh import SEAL_CIRCLE_V_ID, seal_mano_faces
 
 from ..mano.server import build_mano_server, mano_server_forward
 from ..utils.rot import axis_angle_to_matrix

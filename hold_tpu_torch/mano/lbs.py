@@ -1,8 +1,7 @@
 """Linear blend skinning for MANO (counterpart of hold_tpu/mano/lbs.py).
 
 Blend shapes, Rodrigues, the 16-joint kinematic chain and weighted skinning
-as batched tensor ops.  The model data comes from the JAX package's
-numpy-only ``hold_tpu.mano.model_data``.
+as batched tensor ops.  The model data comes from ``mano/model_data.py``.
 """
 
 from __future__ import annotations
@@ -12,7 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from hold_tpu.mano.model_data import TIP_VERTEX_IDS, ManoModelData
+from .model_data import TIP_VERTEX_IDS, ManoModelData
 
 
 class ManoConstants(NamedTuple):

@@ -8,7 +8,7 @@ from typing import NamedTuple
 
 import torch
 
-from hold_tpu.mano.model_data import load_mano
+from .model_data import load_mano
 
 from .lbs import ManoConstants, constants_from_model, lbs_forward, mano_full_pose
 

@@ -1,11 +1,13 @@
 """Scene composition: nodes + NeRF++ background + loss-target preparation
-(counterpart of hold_tpu/models/holdnet.py, training path).
+(counterpart of hold_tpu/models/holdnet.py).
 
 Static scene state (MANO/object servers, layer plans, the hand subdivision
 operator) lives in a ``Scene``; everything trainable is in the params tree
 (utils/convert.py); the object's canonical mesh rides in a fixed-shape
 ``mesh_state`` dict.  The random draws of one step are made up front by
 ``sample_step_draws`` and handed to ``holdnet_forward`` as tensors.
+``holdnet_render`` is the inference composite (the JAX ``holdnet_forward`` at
+``training=False``): no loss targets, the even background grid.
 """
 
 from __future__ import annotations
@@ -14,10 +16,8 @@ from dataclasses import dataclass, field
 
 import torch
 
-from hold_tpu.models.specs import CLASS_IDS, MANO_SPECS, OBJECT_SPECS, TIME_CODE_DIM
-from hold_tpu.utils.mesh import mano_subdivision_operator
-
 from ..mano.server import build_mano_server
+from ..ops.fused_render import supports_fused_render
 from ..ops.point_mesh import (
     face_circumradius_bound,
     off_surface_by_vertex_bound,
@@ -34,6 +34,7 @@ from ..render.background import background_forward, background_plans, init_backg
 from ..render.ray_sampler import SamplerConfig, inverse_sphere_z_vals
 from ..render.volsdf import get_camera_rays, merge_factors, volumetric_render
 from ..utils.convert import leaf_params
+from ..utils.mesh import mano_subdivision_operator
 from .density import init_laplace_density
 from .mlp import (
     apply_implicit_net,
@@ -48,12 +49,16 @@ from .nodes import (
     NodePlans,
     _flat_per_point,
     mano_node_forward,
+    mano_node_render,
     mano_node_sample_z,
+    node_render_packs,
     object_node_forward,
+    object_node_render,
     object_node_sample_z,
     use_fused_query,
 )
 from .object_model import build_object_server
+from .specs import CLASS_IDS, MANO_SPECS, OBJECT_SPECS, TIME_CODE_DIM
 
 OBJ_CENTERS = 16384
 OBJ_BOUND_V = 8192
@@ -84,17 +89,20 @@ def _object_render_opt(opt_model) -> dict:
     return opt
 
 
-def build_scene(opt_model, args, scene_data: dict, device=None,
-                fused_sampler: bool = True) -> Scene:
-    """Static scene state.  ``fused_sampler=False`` makes every node's
-    sampler query the trunk layer by layer (the JAX package's
-    ``HOLD_NO_FUSED_SAMPLER=1``); otherwise nodes whose trunk the fused
-    query kernel supports use it."""
+def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
+                fused_render: bool = True) -> Scene:
+    """Static scene state on ``device``.  ``fused_sampler=False`` makes every
+    node's sampler query the trunk layer by layer (the JAX package's
+    ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
+    shade run the chunked grad-stage shade (``HOLD_NO_FUSED_RENDER=1``);
+    otherwise nodes whose nets the fused kernels support use them."""
     if opt_model.get("proposal", {}).get("enabled", False):
         raise NotImplementedError(
             "the proposal net is not ported: set model.proposal.enabled to false"
         )
-    device = torch.device(device or "cpu")
+    if device is None:
+        raise ValueError("build_scene needs a device")
+    device = torch.device(device)
     entities = scene_data["entities"]
     node_ids = tuple(_hand_ids(entities) + ["object"])
     rs = opt_model["ray_sampler"]
@@ -122,11 +130,12 @@ def build_scene(opt_model, args, scene_data: dict, device=None,
             sub_ops[nid] = (torch.as_tensor(M, device=device),
                             torch.as_tensor(faces_div, device=device))
         implicit = implicit_net_shapes(opt_model["implicit_network"], specs)
+        rendering = rendering_net_shapes(render_opt, specs)
         plans[nid] = NodePlans(
-            implicit=implicit,
-            rendering=rendering_net_shapes(render_opt, specs),
+            implicit=implicit, rendering=rendering,
             sampler=sampler_cfg, barf_cfg=barf_cfg, class_id=CLASS_IDS[nid],
             fused_query=fused_sampler and use_fused_query(implicit, sampler_cfg),
+            fused_render=fused_render and supports_fused_render(implicit, rendering),
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,
@@ -181,7 +190,7 @@ def init_scene_params(gen: torch.Generator, scene: Scene, scene_data: dict) -> d
     return leaf_params(params, scene.device)
 
 
-def empty_object_mesh_state(device=None) -> dict:
+def empty_object_mesh_state(device) -> dict:
     """Fixed-shape buffers for the object's canonical mesh, before meshing:
     the far-padded bound rows (1e4) make every ray off-surface, and
     ``valid`` = 0 disables the object's sparse/eikonal terms."""
@@ -352,4 +361,50 @@ def holdnet_forward(params, scene: Scene, batch, mesh_state, draws, step, epoch,
                             ray_dirs, cam_loc, bg_z, frame_idx, radius, step=step)
     out["rgb"] = out["fg_rgb"] + bg["bg_rgb"]
     out["semantics"] = out["fg_semantics"] + bg["bg_semantics"]
+    return out
+
+
+def render_packs(params, scene: Scene) -> dict:
+    """The fused render's weight packs of every node that uses it, to build
+    once per set of params and pass to each ``holdnet_render`` call."""
+    return {nid: node_render_packs(params[nid], scene.plans[nid], scene.device)
+            for nid in scene.node_ids if scene.plans[nid].fused_render}
+
+
+@torch.no_grad()
+def holdnet_render(params, scene: Scene, batch, z_vals_dict: dict,
+                   packs: dict | None = None) -> dict:
+    """Inference composite at the eval sampler's z tables, with no step (the
+    BARF window open): the merged and per-node renders (with
+    ``fg_rgb_vis``), the background on its even grid, ``rgb``,
+    ``semantics``, ``bg_rgb_only`` and ``instance_map`` (argmax of the
+    semantics).  ``packs`` is ``render_packs``'s, built here when not
+    given."""
+    B, P = batch["uv"].shape[:2]
+    ray_dirs, cam_loc = _rays(batch)
+    if packs is None:
+        packs = render_packs(params, scene)
+    factors_list = []
+    for nid in scene.node_ids:
+        fn = object_node_render if nid == "object" else mano_node_render
+        factors, _ = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
+                        cam_loc, z_vals_dict[nid], packs.get(nid))
+        factors_list.append(factors)
+    out = volumetric_render(merge_factors(factors_list), vis=True)
+    for nid, factors in zip(scene.node_ids, factors_list):
+        f = dict(factors)
+        f["z_max"] = f["z_vals"][:, -1]
+        out.update({f"{nid}.{k}": v for k, v in volumetric_render(f, vis=True).items()})
+
+    radius = scene.sampler_cfg.scene_bounding_sphere
+    bg_z = inverse_sphere_z_vals(
+        None, B * P, scene.sampler_cfg.N_samples_inverse_sphere, device=scene.device,
+    ) * (1.0 / radius)
+    frame_idx = batch["frame_idx"][:, None].expand(B, P).reshape(-1)
+    bg = background_forward(params["background"], scene.bg_plans, out["bg_weights"],
+                            ray_dirs, cam_loc, bg_z, frame_idx, radius, step=None)
+    out["rgb"] = out["fg_rgb"] + bg["bg_rgb"]
+    out["semantics"] = out["fg_semantics"] + bg["bg_semantics"]
+    out["bg_rgb_only"] = bg["bg_rgb_only"]
+    out["instance_map"] = torch.argmax(out["semantics"], dim=1)
     return out

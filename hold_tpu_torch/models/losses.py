@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from hold_tpu.models.specs import SEGM_IDS
+from .specs import SEGM_IDS
 
 from ..utils.transforms import safe_norm
 

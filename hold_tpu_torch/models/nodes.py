@@ -1,5 +1,5 @@
-"""Scene nodes: the MANO hand and the rigid object (counterpart of the
-training path of hold_tpu/models/nodes.py).
+"""Scene nodes: the MANO hand and the rigid object (counterpart of
+hold_tpu/models/nodes.py).
 
 Each node owns a canonical SDF field, a color field, a Laplace density, and
 per-frame pose tables; a deformer warps deformed-space ray samples into the
@@ -17,6 +17,12 @@ canonical field.  Training runs in two stages:
   runs in float32, chunked over the points, with the SDF gradient taken
   with ``create_graph=True`` so the loss differentiates through it.
 
+Rendering (``*_node_render``, the JAX forwards at ``training=False``) runs
+under ``torch.no_grad()`` at the eval sampler's z table.  By default
+(``NodePlans.fused_render``) each node's shade is one fused kernel
+(``ops/fused_render.py``: warp, J^-1, trunk, normal and colour); otherwise it
+is the grad stage's warps and chunked shade without the graph.
+
 A batch carries B frames x P pixels; ray tensors are flat (R = B*P); warp
 tensors keep the (B, P*S) frame grouping because bone transforms differ per
 frame.
@@ -29,8 +35,6 @@ from typing import NamedTuple
 
 import torch
 
-from hold_tpu.models.specs import MAX_CLASS
-
 from ..mano.server import ManoServerState, mano_server_forward
 from ..ops.chunk import map_chunked
 from ..ops.fused_query import (
@@ -39,6 +43,13 @@ from ..ops.fused_query import (
     fused_object_sampler_sdf_z,
     pack_trunk_weights,
     supports_fused_query,
+)
+from ..ops.fused_render import (
+    frame_bias0,
+    fused_hand_render,
+    fused_object_render,
+    pack_color_weights,
+    pack_trunk_transposed,
 )
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
 from ..render.ray_sampler import SamplerConfig, error_bound_z_vals
@@ -54,6 +65,7 @@ from .mlp import (
     resolve_weight_norm,
 )
 from .object_model import ObjectServerState, object_deform, object_server_forward
+from .specs import MAX_CLASS
 
 
 class NodePlans(NamedTuple):
@@ -65,6 +77,7 @@ class NodePlans(NamedTuple):
     knn_k: int = 15
     max_dist: float = 0.1
     fused_query: bool = False  # sampler queries through ops/fused_query.py
+    fused_render: bool = False  # render shade through ops/fused_render.py
 
 
 def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
@@ -114,15 +127,18 @@ def _semantics(plans: NodePlans, R: int, S: int, device) -> torch.Tensor:
     return sem
 
 
-def _shade_sdf_and_grad(imp, plans, xc, step):
-    """SDF trunk + width-1 head at ``xc`` and d(sdf)/d(xc) with its graph."""
+def _shade_sdf_and_grad(imp, plans, xc, step, create_graph=True):
+    """SDF trunk + width-1 head at ``xc`` and d(sdf)/d(xc), with its graph
+    when ``create_graph`` (the grad stage), else detached (rendering)."""
     with torch.enable_grad():
         if not xc.requires_grad:
             xc = xc.detach().requires_grad_(True)
         h = apply_implicit_trunk(imp, plans.implicit, xc, None, step=step,
                                  barf_cfg=plans.barf_cfg)
         sdf = implicit_sdf_from_trunk(imp, h)
-        (g,) = torch.autograd.grad(sdf, xc, torch.ones_like(sdf), create_graph=True)
+        (g,) = torch.autograd.grad(sdf, xc, torch.ones_like(sdf), create_graph=create_graph)
+    if not create_graph:
+        xc, sdf, h = xc.detach(), sdf.detach(), h.detach()
     return xc, sdf, h, g
 
 
@@ -145,8 +161,9 @@ def _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f):
 # --------------------------------------------------------------------------
 
 def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
-                      ray_dirs, cam_loc, step, epoch, z_vals):
-    """Returns (factors, sample_dict) for the hand at the given z table."""
+                      ray_dirs, cam_loc, step, epoch, z_vals, create_graph=True):
+    """Returns (factors, sample_dict) for the hand at the given z table;
+    ``create_graph=False`` leaves the SDF gradient out of the graph."""
     B, P = batch["uv"].shape[:2]
     imp = resolve_weight_norm(nparams["implicit"])
     rend = resolve_weight_norm(nparams["rendering"])
@@ -169,7 +186,7 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
     pe_pp = _flat_per_point(_apply_linear(rend["lin_pose"], cond_pose).float(), P * S_f)
 
     def shade(xc, pe, vw, jinv):
-        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step)
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph)
         feat = implicit_feat_from_trunk(imp, h)
         # n_j = sum_i g_i (J^-1)_ij with J^-1 row-major
         nrm = _normalize(torch.stack(
@@ -196,7 +213,7 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
 
 
 def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, batch,
-                        ray_dirs, cam_loc, step, epoch, z_vals):
+                        ray_dirs, cam_loc, step, epoch, z_vals, create_graph=True):
     B, P = batch["uv"].shape[:2]
     imp = resolve_weight_norm(nparams["implicit"])
     rend = resolve_weight_norm(nparams["rendering"])
@@ -213,7 +230,7 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
     view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
 
     def shade(xc, vw, jinv, tc):
-        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step)
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph)
         feat = implicit_feat_from_trunk(imp, h)
         nrm = _normalize(torch.einsum("ni,nij->nj", g, jinv))
         rgb = apply_rendering_net(
@@ -228,6 +245,93 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
         "canonical_pts": x_c.reshape(B, P, S_f, 3),
         "sample_sdf": sdf.reshape(B, P, S_f),
         "tfs": tfs,
+    }
+    return factors, sample_dict
+
+
+# --------------------------------------------------------------------------
+# Rendering
+# --------------------------------------------------------------------------
+
+def _world_points(ray_dirs, cam_loc, z_vals, B):
+    return (cam_loc[:, None, :] + z_vals[:, :, None] * ray_dirs[:, None, :]).reshape(
+        B, -1, 3).contiguous()
+
+
+@torch.no_grad()
+def node_render_packs(nparams, plans: NodePlans, device) -> tuple:
+    """The fused render's weights for one node, (window, trunk pack,
+    transposed pack, colour pack): built once per set of params and shared by
+    every chunk.  No step when rendering: the BARF window is open."""
+    imp = resolve_weight_norm(nparams["implicit"])
+    fwd = pack_trunk_weights(imp, plans.implicit)
+    return (embed_window(plans.implicit, None, plans.barf_cfg, device), fwd,
+            pack_trunk_transposed(imp, plans.implicit, fwd),
+            pack_color_weights(resolve_weight_norm(nparams["rendering"]), imp))
+
+
+@torch.no_grad()
+def mano_node_render(nparams, server: ManoServerState, plans: NodePlans, batch, ray_dirs,
+                     cam_loc, z_vals, packs=None):
+    """The hand's inference forward (the JAX ``mano_node_forward`` at
+    ``training=False``): (factors, sample_dict), no gradient.  The pose
+    conditioning is not zeroed (no epoch).  ``packs`` is
+    ``node_render_packs``'s, built here when not given."""
+    if not plans.fused_render:
+        return mano_node_forward(nparams, server, plans, batch, ray_dirs, cam_loc, None, None,
+                                 z_vals, create_graph=False)
+    B, P = batch["uv"].shape[:2]
+    rend = resolve_weight_norm(nparams["rendering"])
+    srv_out, cond_pose = _mano_pose(nparams, server, batch, None)
+    tfs = srv_out.tfs.contiguous()
+    verts_posed = srv_out.verts.contiguous()
+    verts_c = server.verts_c.expand(B, -1, -1).contiguous()
+    skin_w = server.skin_weights_c.expand(B, -1, -1).contiguous()
+    S_f = z_vals.shape[1]
+    pts = _world_points(ray_dirs, cam_loc, z_vals, B)
+    pe = _apply_linear(rend["lin_pose"], cond_pose).float()  # (B, 8), f32
+    if packs is None:
+        packs = node_render_packs(nparams, plans, pts.device)
+    sdf, rgb, nrm, dist, x_c = fused_hand_render(
+        pts, verts_posed, verts_c, skin_w, tfs, *packs, frame_bias0(rend, pe), K=plans.knn_k)
+    factors = _node_outputs(plans, nparams, z_vals, sdf.reshape(-1), rgb, nrm, B, P, S_f)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "cond_pose": cond_pose,
+        "tfs": tfs,
+        "verts_posed": verts_posed,
+        "v_posed": srv_out.v_posed,
+        "jnts": srv_out.jnts,
+        "outlier": dist > plans.max_dist,
+    }
+    return factors, sample_dict
+
+
+@torch.no_grad()
+def object_node_render(nparams, server: ObjectServerState, plans: NodePlans, batch, ray_dirs,
+                       cam_loc, z_vals, packs=None):
+    """The object's inference forward: its colour net takes no pose
+    embedding and the frame latent as its time code."""
+    if not plans.fused_render:
+        return object_node_forward(nparams, server, plans, batch, ray_dirs, cam_loc, None, None,
+                                   z_vals, create_graph=False)
+    B, P = batch["uv"].shape[:2]
+    rend = resolve_weight_norm(nparams["rendering"])
+    srv_out = _object_pose(nparams, server, batch)
+    tfs = srv_out.obj_tfs
+    time_code = nparams["frame_latent"][batch["frame_idx"]]
+    tf12 = torch.cat([inverse_mat3(tfs[:, :3, :3]).reshape(B, 9), tfs[:, :3, 3]], dim=-1)
+    S_f = z_vals.shape[1]
+    pts = _world_points(ray_dirs, cam_loc, z_vals, B)
+    fb0 = frame_bias0(rend, torch.zeros((B, 8), device=pts.device), time_code)
+    if packs is None:
+        packs = node_render_packs(nparams, plans, pts.device)
+    sdf, rgb, nrm, _, x_c = fused_object_render(pts, tf12.contiguous(), *packs, fb0)
+    factors = _node_outputs(plans, nparams, z_vals, sdf.reshape(-1), rgb, nrm, B, P, S_f)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "tfs": tfs,
+        "verts_posed": srv_out.verts,
     }
     return factors, sample_dict
 

@@ -41,6 +41,10 @@ _SIGNATURES = {
     "hold_fused_object_sdf_z": [_P] * 8 + [_I] * 4 + [_P],
     "hold_fused_hand_sdf": [_P] * 8 + [_I] * 6 + [_P],
     "hold_fused_object_sdf": [_P] * 6 + [_I] * 3 + [_P],
+    "hold_knn_blend": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    "hold_fused_hand_render": [_P] * 18 + [_I] * 7 + [_P],
+    "hold_fused_object_render": [_P] * 15 + [_I] * 4 + [_P],
+    "hold_fused_render_scratch_words": [],
 }
 
 _lock = threading.Lock()

@@ -53,8 +53,13 @@ _LAYOUT = (
 )
 W_TOTAL = sum(r * c for _, r, c in _LAYOUT)
 F_TOTAL = 8 * H + H + 1  # bias (8, 256) | head row (256) | head bias
-# the trunk's FLOPs a point as the kernel multiplies it (zero pads included)
+# the trunk's FLOPs a point as the kernel multiplies it (zero pads included),
+# for the rate it reaches
 TRUNK_FLOPS_PER_POINT = 2.0 * (W_TOTAL + H)
+# the MACs a point the function needs (no pads), for its bound: layer 0 takes
+# E inputs and layer 3 gives 256 - E outputs, which layer 4 takes beside the
+# E embedding columns, so E cancels: seven 256x256 products and the head row
+TRUNK_MACS = 7 * H * H + H
 
 LAUNCHES = {
     "fused_hand_sampler_sdf_z": 0,

@@ -15,8 +15,11 @@ K-th nearest vertex lies more than 2 units away, which many sampler points
 inside the scene sphere are.  The TPU main path computes the threshold form,
 so the port's plain versions and its CUDA kernels both do.
 
-Three kernels, each with a plain PyTorch version in this module:
+Four kernels, each with a plain PyTorch version in this module:
 
+- ``knn_blend_weights`` / ``knn_blend_weights_t``: the blended weights
+  alone, (B,P,J) or points-minor (B,J,P), stop-gradient (one kernel with two
+  output layouts; no path of either package calls them);
 - ``knn_inverse_warp``: sampler warp, stop-gradient.
 - ``knn_inverse_warp_diff``: the grad stage's warp; closed-form backward
   (a kernel too) for ``pts`` and ``tfs``.
@@ -42,6 +45,8 @@ JMAX = 16
 VMAX = 14000  # vertices that fit the kernels' shared memory (16 B each)
 
 LAUNCHES = {
+    "knn_blend_weights": 0,
+    "knn_blend_weights_t": 0,
     "knn_inverse_warp": 0,
     "knn_inverse_warp_diff.fwd": 0,
     "knn_inverse_warp_diff.bwd": 0,
@@ -106,9 +111,8 @@ def _outlier(dmin: torch.Tensor, max_dist: float) -> torch.Tensor:
     return torch.sqrt(torch.clamp(dmin, max=_CLAMP)) > max_dist
 
 
-def knn_blend_weights(pts, verts, skin_weights, K: int = 15,
-                      max_dist: float = 0.1):
-    """Plain KNN blend: (weights (B,P,J) detached, outlier (B,P))."""
+def blend_weights_plain(pts, verts, skin_weights, K=15, max_dist=0.1):
+    """Plain version of the blend kernel: (weights (B,P,J), outlier (B,P))."""
     w, dmin = _blend_plain(pts, verts, skin_weights, K)
     return w, _outlier(dmin, max_dist)
 
@@ -146,7 +150,7 @@ def jacobian_inverse_plain(pts_c, verts_c, skin_weights, tfs, K=15):
 # CUDA launches (csrc/knn.cu)
 # --------------------------------------------------------------------------
 
-def _check_knn(pts, verts, skin_weights, tfs, K):
+def _check_blend(pts, verts, skin_weights, K):
     B, P = pts.shape[:2]
     V, J = verts.shape[1], skin_weights.shape[2]
     if not 1 <= K <= KMAX:
@@ -156,8 +160,25 @@ def _check_knn(pts, verts, skin_weights, tfs, K):
     _cuda.check(pts, "pts", (B, P, 3))
     _cuda.check(verts, "verts", (B, V, 3))
     _cuda.check(skin_weights, "skin_weights", (B, V, J))
+    return B, P, V, J
+
+
+def _check_knn(pts, verts, skin_weights, tfs, K):
+    B, P, V, J = _check_blend(pts, verts, skin_weights, K)
     _cuda.check(tfs, "tfs", (B, J, 4, 4))
     return B, P, V, J
+
+
+def _blend_cuda(pts, verts, skin_weights, K, max_dist, transposed):
+    B, P, V, J = _check_blend(pts, verts, skin_weights, K)
+    shape = (B, J, P) if transposed else (B, P, J)
+    w = torch.empty(shape, dtype=torch.float32, device=pts.device)
+    outlier = torch.empty((B, P), dtype=torch.bool, device=pts.device)
+    _cuda.launch("hold_knn_blend", pts.data_ptr(), verts.data_ptr(), skin_weights.data_ptr(),
+                 w.data_ptr(), outlier.data_ptr(), B, P, V, J, K, float(max_dist),
+                 int(transposed))
+    LAUNCHES["knn_blend_weights_t" if transposed else "knn_blend_weights"] += 1
+    return w, outlier
 
 
 def _warp_fwd_cuda(pts, verts, skin_weights, tfs, K, max_dist, resid, name):
@@ -254,6 +275,26 @@ class _JacobianInverse(torch.autograd.Function):
 # --------------------------------------------------------------------------
 # Public wrappers
 # --------------------------------------------------------------------------
+
+def knn_blend_weights(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1):
+    """KNN blend (stop-gradient): pts (B,P,3), verts (B,V,3), skin_weights
+    (B,V,J) -> (weights (B,P,J), outlier (B,P))."""
+    args = [t.detach() for t in (pts, verts, skin_weights)]
+    if pts.is_cuda:
+        return _blend_cuda(*args, K, max_dist, False)
+    _require_cpu(pts)
+    return blend_weights_plain(*args, K, max_dist)
+
+
+def knn_blend_weights_t(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1):
+    """Points-minor KNN blend (stop-gradient): -> (weights (B,J,P), outlier (B,P))."""
+    args = [t.detach() for t in (pts, verts, skin_weights)]
+    if pts.is_cuda:
+        return _blend_cuda(*args, K, max_dist, True)
+    _require_cpu(pts)
+    w, outlier = blend_weights_plain(*args, K, max_dist)
+    return w.transpose(1, 2).contiguous(), outlier
+
 
 def knn_inverse_warp(pts, verts, skin_weights, tfs, K: int = 15,
                      max_dist: float = 0.1):

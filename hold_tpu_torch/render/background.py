@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from hold_tpu.models.specs import MAX_CLASS
+from ..models.specs import MAX_CLASS
 
 from ..models.density import abs_density
 from ..models.mlp import (

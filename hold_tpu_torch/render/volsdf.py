@@ -48,11 +48,14 @@ def merge_factors(factors_list: list[dict], num_nodes: int | None = None) -> dic
     return out
 
 
-def volumetric_render(factors: dict) -> dict:
+def volumetric_render(factors: dict, vis: bool = False) -> dict:
+    """Density -> weights -> integrated rgb, mask, normal, depth and
+    semantics; ``vis`` (rendering) adds ``fg_rgb_vis``, the foreground over a
+    white background."""
     fg_weights, bg_weights = density2weight(
         factors["density"][..., 0], factors["z_vals"], factors["z_max"]
     )
-    return {
+    out = {
         "fg_rgb": integrate(factors["color"], fg_weights),
         "fg_weights": fg_weights,
         "mask_prob": torch.clamp(
@@ -63,6 +66,9 @@ def volumetric_render(factors: dict) -> dict:
         "fg_semantics": integrate(factors["semantics"], fg_weights),
         "bg_weights": bg_weights,
     }
+    if vis:
+        out["fg_rgb_vis"] = out["fg_rgb"] + bg_weights[:, None]
+    return out
 
 
 def get_camera_rays(uv: torch.Tensor, extrinsics: torch.Tensor, intrinsics: torch.Tensor):

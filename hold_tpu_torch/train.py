@@ -6,20 +6,21 @@ kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
 render + loss + backward grad stage and one Adam step.  Adam has the
 reference's two learning-rate groups (pose tables at 0.1x lr); the object
 scale stays fixed.  Scalars go to
-``<log_root>/<exp_key>/metrics.jsonl`` through the JAX package's Tracker, and
-the final state to ``checkpoints/last.pt``.  Canonical meshing, validation
-renders, resume, --load_pose and --shape_init are not ported yet.
+``<log_root>/<exp_key>/metrics.jsonl`` (``utils/logger.py``), and the final
+state and model config to ``checkpoints/last.pt``, which
+``utils/checkpoint.load_experiment`` reads back for rendering.  Canonical meshing, validation
+renders, resume, --load_pose and --shape_init are not ported yet.  It runs on
+the card unless asked for the CPU (``--device cpu``, ``device="cpu"``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import time
 
 import numpy as np
 import torch
-
-from hold_tpu.utils.logger import StepTimer, Tracker
 
 from .data.dataset import SequenceData
 from .models.holdnet import (
@@ -31,8 +32,9 @@ from .models.holdnet import (
     sample_step_draws,
 )
 from .models.losses import compute_losses
-from .utils.config import parse_args
+from .utils.config import parse_args, resolve_device
 from .utils.convert import flatten_params
+from .utils.logger import StepTimer, Tracker
 from .utils.metrics import psnr
 
 
@@ -100,8 +102,9 @@ def make_train_step(scene, optimizer, timer: StepTimer | None = None):
 
 def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | None = None,
                  device=None):
-    """Train for ``max_steps`` (default args.total_step) steps.  Returns
-    (params, scene, mesh_state, tracker, timer)."""
+    """Train for ``max_steps`` (default args.total_step) steps on ``device``
+    (default ``args.device``, else the card).  Returns (params, scene,
+    mesh_state, tracker, timer)."""
     for flag in ("load_ckpt", "load_pose", "shape_init"):
         if args.get(flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
@@ -110,7 +113,7 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
             "canonical meshing and validation renders are not ported yet: "
             "pass --no_meshing --no_vis"
         )
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device or args.get("device"))
     if seq is None:
         seq = SequenceData.from_build_dir(args.case, args.data_root, num_sample=args.num_sample)
     opt_model = dict(cfg["model"])
@@ -159,7 +162,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     os.makedirs(ckpt_dir, exist_ok=True)
     torch.save(
         {"params": {k: v.detach().cpu() for k, v in flatten_params(params).items()},
-         "optimizer": optimizer.state_dict(), "step": total_steps},
+         "optimizer": optimizer.state_dict(), "step": total_steps,
+         "model": json.loads(json.dumps(opt_model))},
         os.path.join(ckpt_dir, "last.pt"),
     )
     log.info(f"done: {total_steps} steps in {time.time() - t_start:.1f}s; "

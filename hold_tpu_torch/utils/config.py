@@ -16,6 +16,7 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 
 class Cfg(dict):
@@ -176,7 +177,18 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
     p.add_argument("--no_fused_sampler", action="store_true")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default; fails without a card) or cpu")
     return p
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks for
+    the CPU.  Raises when a CUDA device is asked for and there is none."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device='cpu') to run on the CPU")
+    return dev
 
 
 def parse_args(argv=None):

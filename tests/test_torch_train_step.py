@@ -160,7 +160,7 @@ def grad_step(toy):
     tparams = _tparams(toy)
     tbatch = batch_to_device(toy["batch_np"], "cpu")
     draws = _draws_from_jax_keys(rng, jscene, B, P)
-    out = thn.holdnet_forward(tparams, toy["tscene"], tbatch, thn.empty_object_mesh_state(),
+    out = thn.holdnet_forward(tparams, toy["tscene"], tbatch, thn.empty_object_mesh_state("cpu"),
                               draws, STEP, EPOCH, {k: torch.tensor(v) for k, v in jz.items()})
     tl = compute_losses(tbatch, out, toy["tscene"].node_ids, STEP)
     tl["loss"].backward()
@@ -216,8 +216,17 @@ def test_one_adam_step_matches_optax(grad_step, toy):
 
 
 def test_port_entry_points_import_no_jax():
-    code = ("import sys, hold_tpu_torch.train, hold_tpu_torch.data.synthetic, chip_smoke; "
+    """The port's entry points and modules load neither JAX nor anything of
+    the JAX package (hold_tpu)."""
+    mods = ("hold_tpu_torch.train", "hold_tpu_torch.render_cli", "hold_tpu_torch.data.synthetic",
+            "hold_tpu_torch.ops.fused_render", "hold_tpu_torch.render.renderer",
+            "hold_tpu_torch.utils.checkpoint", "hold_tpu_torch.utils.logger",
+            "hold_tpu_torch.utils.mesh", "hold_tpu_torch.models.specs",
+            "hold_tpu_torch.mano.model_data", "chip_smoke")
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'optax', 'orbax') if m in sys.modules]; "
+            "assert not bad, bad; "
+            "bad = [m for m in sys.modules if m == 'hold_tpu' or m.startswith('hold_tpu.')]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "HOLD_PLATFORM"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
