@@ -10,21 +10,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. Kernel checks: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes one full-width training step gives
    it, with the tolerance stated; kernel and plain times from CUDA events
-   over enough launches to fill 100 ms.  The render kernels run at one
-   render chunk's shapes (4096 rays x 98 samples of the eval sampler: a
-   frame's hand and object pixels, then background ones), the KNN blend
-   kernels at the sampler warp's.
+   over enough launches to fill 100 ms.  The fused training shade (row 7)
+   runs forward and backward at the grad stage's real canonical points and
+   J^-1 of both nodes (10 frames x 12,544 points) and at an N that is no
+   multiple of its tile; its backward part by part (each matrix and bias
+   of the packs, the rows where its work divides), beside the plain version
+   with float64 products and without its bf16 roundings, under the JAX
+   package's test loss, under seeded cotangents, and under those with only
+   the rows where its work divides carrying them.  The render
+   kernels run at one render chunk's shapes (4096 rays x 98 samples of the
+   eval sampler: a frame's hand and object pixels, then background ones),
+   the KNN blend kernels at the sampler warp's.
 4. Agreement on a small batch: the sampler's z tables (fused query kernels
    on the card, their plain versions on the CPU), then one grad-stage loss
    and its parameter gradients, kernels on the card against the plain path
-   on the CPU; then 256 hand and object rays of a frame, the card's z
-   tables given to both sides, composited maps on the card against the CPU.
+   on the CPU, twice: with the chunked shade (``--no_fused_train``) and with
+   the fused training shade; then 256 hand and object rays of a frame, the
+   card's z tables given to both sides, composited maps on the card against
+   the CPU.
 5. The training slice: ``hold_tpu_torch.train.run_training`` on the
    synthetic sequence (12 frames, 240x320) at full width, 10 frames x 128
-   rays = 1280 rays per step, twice: 5 steps with the fused sampler (the
-   default), then 3 steps with ``--no_fused_sampler`` (the layer-by-layer
-   sampler), every kernel's launch counter set to 0 just before each.  Every
-   loss must be finite and every kernel of a path launched in its run.
+   rays = 1280 rays per step, three times: 5 steps with the defaults (fused
+   sampler, fused training shade), 3 steps with ``--no_fused_sampler`` (the
+   layer-by-layer sampler), 3 steps with ``--no_fused_train`` (the chunked
+   shade), every kernel's launch counter set to 0 just before each.  Every
+   loss must be finite and every kernel of a path launched in its run, and
+   none off it; one more step of each run under torch.profiler gives the
+   device time of each stage by kernel family.
 6. The render slice: ``hold_tpu_torch.render_cli`` loads the fused run's
    checkpoint and renders two full frames at ``render_downsample`` 2
    (120x160 = 19,200 rays, 4096 a chunk), counters at 0 just before: the
@@ -44,6 +56,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -59,21 +72,27 @@ LAYER_STEPS = 3
 RENDER_FRAMES, RENDER_DOWNSAMPLE, PIXEL_PER_BATCH = 2, 2, 4096
 SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point_mesh.cu",
            "fq": "hold_tpu_torch/csrc/fused_query.cu",
-           "fr": "hold_tpu_torch/csrc/fused_render.cu"}
+           "fr": "hold_tpu_torch/csrc/fused_render.cu", "fs": "hold_tpu_torch/csrc/fused_shade.cu"}
 # kernel name -> (source, TPU kernel it replaces: file:line of the pallas_call,
-# the runs whose path launches it: "fused" (phase 5, default sampler),
-# "layer" (phase 5, --no_fused_sampler), "render" (phase 6)).  The
-# point-buffer forms of the fused query and the KNN blend kernels are on no
-# path, in the JAX package as here: phase 3 alone drives them.
+# the runs whose path launches it: "fused" (phase 5, the defaults), "layer"
+# (phase 5, --no_fused_sampler), "chunked" (phase 5, --no_fused_train),
+# "render" (phase 6)).  The point-buffer forms of the fused query and the KNN
+# blend kernels are on no path, in the JAX package as here: phase 3 alone
+# drives them.
+GRAD = ("fused", "layer", "chunked")
 KERNELS = {
     "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", ("layer",)),
-    "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", ("fused", "layer")),
-    "knn_inverse_warp_diff.bwd": ("knn", "hold_tpu/ops/knn.py:581", ("fused", "layer")),
-    "knn_jacobian_inverse.fwd": ("knn", "hold_tpu/ops/knn.py:737", ("fused", "layer")),
-    "knn_jacobian_inverse.bwd": ("knn", "hold_tpu/ops/knn.py:781", ("fused", "layer")),
-    "min_vertex_dist": ("pm", "hold_tpu/ops/point_mesh.py:228", ("fused", "layer")),
-    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484", ("fused", "render")),
-    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520", ("fused", "render")),
+    "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", GRAD),
+    "knn_inverse_warp_diff.bwd": ("knn", "hold_tpu/ops/knn.py:581", GRAD),
+    "knn_jacobian_inverse.fwd": ("knn", "hold_tpu/ops/knn.py:737", GRAD),
+    "knn_jacobian_inverse.bwd": ("knn", "hold_tpu/ops/knn.py:781", GRAD),
+    "min_vertex_dist": ("pm", "hold_tpu/ops/point_mesh.py:228", GRAD),
+    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484",
+                                 ("fused", "chunked", "render")),
+    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520",
+                                   ("fused", "chunked", "render")),
+    "fused_shade_train.fwd": ("fs", "hold_tpu/ops/fused_shade.py:294", ("fused", "layer")),
+    "fused_shade_train.bwd": ("fs", "hold_tpu/ops/fused_shade.py:315", ("fused", "layer")),
     "fused_hand_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:389", ()),
     "fused_object_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:419", ()),
     "fused_hand_render": ("fr", "hold_tpu/ops/fused_render.py:480", ("render",)),
@@ -109,6 +128,44 @@ Z_FAR_SHARE = 0.03
 # on the frame's first 4096 pixels.  A normal's error grows as |dSDF/dx|
 # shrinks, hence the looser max.
 RENDER_RGB, RENDER_NRM_P99, RENDER_NRM_MAX = 1e-2, 1e-2, 0.1
+# the fused training shade's backward against its plain version (phase 3)
+# and the fused grad stage, card against CPU (phase 4): the JAX package's
+# bound between its kernel and the same math in XLA
+# (tests/test_fused_shade.py), |d| <= rtol |ref| + atol max|ref|, applied in
+# phase 3 to each part of a returned tensor on its own (x_c, J^-1, their
+# rows next to where the backward's work divides, the frame bias, every
+# matrix and bias row of the packs, the SDF head's bias) and in phase 4 to
+# each parameter's gradient.  A part may have a share of its elements
+# beyond the bound and none beyond a cap times it: GRAD_LIMITS by the kind
+# of part, AGREE_LIMIT in phase 4.  Beside the kernel, each part is read for
+# the plain version with its products summed in float64 (sound: the same
+# math, another summation) and for a control that must fail: in phase 3 the
+# plain version without its bf16 roundings, in phase 4 the chunked f32
+# shade.  Set from those readings on an H100 (PERF.md), at 10 x
+# 12,544 points under seeded cotangents, with only the tail rows' too: the
+# per-point gradients read at most 0.87 of the bound (sound 0.60, control
+# up to 3.5); the sums through the trunk at most 4.6 with 1.0 % of a part
+# beyond (sound 3.0 and 0.4 %, control up to 34 and 44 %); the sums through
+# the colour net's hidden layers and the frame bias, whose terms cancel so
+# that a flipped bf16 rounding moves them far beyond their scale, at most
+# 9.9 with 58 % beyond (sound 8.2 and 46 %, control up to 71); of those the
+# frame bias at most 8.2 with 7.9 % beyond (sound 4.6 and 3.6 %, control
+# 12 and 44 %; each frame's first 16 points counted in the frame before
+# 8.0 and 20-28 %).  Under the cotangents of the JAX package's test loss,
+# which do not cancel, the sums read at most 0.27 (sound 0.25, control up
+# to 1.6) and are held to the bound itself, while a per-point gradient whose
+# terms cancel within the point reads up to 2.0 on 0.007 % of its elements
+# (sound 1.7 and 0.001 %, control 9.0 and 1.1 %): LOSS_LIMITS.
+SHADE_GRAD_RTOL, SHADE_GRAD_ATOL = 5e-3, 5e-3
+GRAD_LIMITS = {"point": (0.0, 1.0), "trunk": (2e-2, 8.0), "colour": (1.0, 15.0),
+               "frame bias": (0.12, 15.0)}
+LOSS_LIMITS = {"point": (5e-4, 4.0), "trunk": (0.0, 1.0), "colour": (0.0, 1.0),
+               "frame bias": (0.0, 1.0)}
+COLOUR_PARTS = ("bw.feat_w", "cw.C0a", "cw.C0f", "cw.C1", "cw.C2", "cw.C3", "cw.cbias0",
+                "cw.cbias1", "cw.cbias2", "cw.cbias3")
+# phase 4, 16 rays: the card at most 2.5 with 0.4 % of a tensor beyond,
+# the CPU's own float64 reading 1.9 and 0.4 %, the chunked shade 2.5 and 25 %
+AGREE_LIMIT = (1e-2, 5.0)
 # one render chunk, card against CPU (phase 4), on the composited maps: the
 # per-sample rgb bound integrated over a ray stays under it; normals are
 # averaged unit vectors; the mask and depth move with the density, which
@@ -190,6 +247,19 @@ def max_err(a, b) -> float:
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+@contextlib.contextmanager
+def products_in_f64(torch):
+    """Every product ``a @ b`` of a float32 ``a`` summed in float64, then
+    rounded to float32."""
+    matmul = torch.Tensor.__matmul__
+    torch.Tensor.__matmul__ = lambda a, b: (matmul(a.double(), b.double()).float()
+                                            if a.dtype == torch.float32 else matmul(a, b))
+    try:
+        yield
+    finally:
+        torch.Tensor.__matmul__ = matmul
+
+
 def check_bf16_query(name: str, got, ref) -> float:
     """|d| <= FQ_MAX * max(1, |ref|) and mean|d| <= FQ_MEAN, else raise;
     returns max|d|."""
@@ -268,7 +338,8 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     z0 = uniform_z_vals(None, ray_dirs, cam_loc, torch.zeros_like(far), far,
                         scene.sampler_cfg.N_samples_eval)
     pts_s = (cam_loc[:, None] + z0[..., None] * ray_dirs[:, None]).reshape(B, -1, 3).contiguous()
-    z = sample_all_z(params, scene, batch, torch.Generator(dev).manual_seed(0), 0, 0)["right"]
+    zs = sample_all_z(params, scene, batch, torch.Generator(dev).manual_seed(0), 0, 0)
+    z = zs["right"]
     pts_g = (cam_loc[:, None] + z[..., None] * ray_dirs[:, None]).reshape(B, -1, 3).contiguous()
     rng = torch.Generator(dev).manual_seed(1)
     results = {}
@@ -373,8 +444,9 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     packs, windows = {}, {}
     for nid in ("right", "object"):
         plans = scene.plans[nid]
-        packs[nid] = fq.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
-                                           plans.implicit)
+        with torch.no_grad():
+            packs[nid] = fq.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
+                                               plans.implicit)
         windows[nid] = fq.embed_window(plans.implicit, sum(plans.barf_cfg) // 2,
                                        plans.barf_cfg, dev)
     obj_tfs = _object_pose(params["object"], scene.servers["object"], batch).obj_tfs.detach()
@@ -429,8 +501,283 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
                f"B={B} P={pts_s.shape[1]} V={V}",
                bound(0, knn_cost(n_s, V, J), n_s * (13 + 4 * J) + B * V * (12 + 4 * J)))
 
+    shade_checks(torch, scene, params, batch, zs["object"], xc, got_j.detach().contiguous(), dev,
+                 record)
     render_checks(torch, seq, scene, params, dev, record)
     return results
+
+
+def grad_reading(torch, got, ref) -> tuple:
+    """(worst |got - ref| over the bound SHADE_GRAD_RTOL |ref| +
+    SHADE_GRAD_ATOL max|ref|, share of elements beyond it, max |got - ref|);
+    (inf, 1, inf) when ``got`` is not finite."""
+    ref = ref.detach().float()
+    got = got.detach().float()
+    if not bool(torch.isfinite(got).all()):
+        return math.inf, 1.0, math.inf
+    d = (got - ref).abs()
+    tol = SHADE_GRAD_RTOL * ref.abs() + SHADE_GRAD_ATOL * max(float(ref.abs().max()), 1e-30)
+    ratio = d / tol
+    return float(ratio.max()), float((ratio > 1.0).float().mean()), float(d.max())
+
+
+def shade_tail_rows(fs, B: int, N: int, width: int = 64) -> list:
+    """Flattened point indices within ``width`` of a place where the
+    backward's work divides: a chunk's first and last points, the blocks
+    that split its sums (colsum_kernel's, and wgrad_kernel's rounded to its
+    32-point steps), every frame boundary, the last point."""
+    total = B * N
+    _, chunks = fs.bwd_chunks(total)
+    edges = set(range(0, total + 1, N))
+    for c0, rows, splits in chunks:
+        per = -(-rows // splits)
+        for step in (per, -(-per // 32) * 32):
+            edges.update(range(c0, c0 + rows, step))
+        edges.add(c0 + rows)
+    return sorted({p for e in edges for p in range(max(0, e - width), min(total, e + width))})
+
+
+def shade_grad_parts(fs, g: dict, tail) -> dict:
+    """The backward's returned tensors cut into the parts checked on their
+    own: x_c, J^-1 and (given) their ``tail`` rows, the frame bias, each
+    matrix of the three packs, each bias row, the SDF head's row and bias."""
+    tw, bw, cw = fs._unpack(g["tw_b"], g["tw_f"], g["bw_b"], g["cw_b"], g["cw_f"])
+    parts = {"xc": g["xc"], "jinv9": g["jinv9"], "fb0": g["fb0"]}
+    if tail is not None:
+        parts.update({"xc tail": g["xc"].reshape(-1, 3)[tail],
+                      "jinv9 tail": g["jinv9"].reshape(-1, 9)[tail]})
+    for tag, pack in (("tw", tw), ("bw", bw), ("cw", cw)):
+        for k, v in pack.items():
+            if k in ("bias", "cbias"):
+                parts.update({f"{tag}.{k}{i}": row for i, row in enumerate(v)})
+            elif k not in ("bf16", "f32"):
+                parts[f"{tag}.{k}"] = v
+    return parts
+
+
+def part_kind(name: str, n: int) -> str:
+    """The key of a part of ``n`` elements in GRAD_LIMITS and LOSS_LIMITS."""
+    if name == "fb0":
+        return "frame bias"
+    if name in COLOUR_PARTS:
+        return "colour"
+    return "point" if name.startswith(("xc", "jinv9")) or n == 1 else "trunk"
+
+
+def grad_table(read: dict, limits: dict, show, control: str) -> tuple:
+    """Holds each part's kernel reading, and the ``control``'s, to the
+    part's (share, cap) in ``limits``; prints a line for each part in
+    ``show`` and each that either fails.  Returns (parts the kernel fails,
+    parts the control fails)."""
+    failed, caught = [], []
+    for k, (w, sh, _) in read["kernel"].items():
+        share, cap = limits[k]
+        ok = sh <= share and w <= cap
+        cw, csh, _ = read[control][k]
+        if not ok:
+            failed.append(k)
+        if not (csh <= share and cw <= cap):
+            caught.append(k)
+        if k in show or not ok or k in caught:
+            print(f"      {k}: " + " | ".join(f"{read[lab][k][0]:.3f} ({read[lab][k][1]:.1e})"
+                                         for lab in ("kernel", "f64 products", control))
+                  + f"; limit {cap:g} ({share:g}) {'ok' if ok else 'FAIL'}", flush=True)
+    return failed, caught
+
+
+def shade_grad_check(torch, fs, args, cts, tail, kinds: dict = GRAD_LIMITS) -> dict:
+    """One backward of row 7, part by part: the kernel, the plain version
+    with float64 products and without its bf16 roundings, each against the
+    plain version, held to ``kinds``' limits.  Returns {reading: {part: (worst,
+    share, max|d|)}, "limits": ..., "failed": [...], "caught": [...],
+    "ref": the plain version's gradients}."""
+    from unittest import mock
+
+    def plain():
+        return fs.shade_train_bwd_plain(*args, *cts)
+
+    ref = plain()
+    got = fs.shade_train_bwd_cuda(*args, *cts)
+    torch.cuda.synchronize()
+    with products_in_f64(torch):
+        f64 = plain()
+    with mock.patch.object(fs, "_bf", lambda x: x):
+        unrounded = plain()
+    tail_t = torch.tensor(tail, device=args[0].device)
+    ref_p = shade_grad_parts(fs, ref, tail_t)
+    out = {}
+    for lab, g in (("kernel", got), ("f64 products", f64), ("unrounded", unrounded)):
+        parts = shade_grad_parts(fs, g, tail_t)
+        out[lab] = {k: grad_reading(torch, parts[k], r) for k, r in ref_p.items()}
+    out["limits"] = {k: kinds[part_kind(k, r.numel())] for k, r in ref_p.items()}
+    print(f"    backward, {len(ref_p)} parts, worst |d| / bound (share beyond) of the kernel | f64 "
+          f"products | unrounded, and the part's limit:", flush=True)
+    out["failed"], out["caught"] = grad_table(out, out["limits"], ref_p, "unrounded")
+    out["ref"] = ref
+    print(f"    the unrounded control fails {len(out['caught'])} of {len(ref_p)} parts "
+          f"{'ok' if out['caught'] else 'FAIL'}", flush=True)
+    return out
+
+
+def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, record) -> None:
+    """Phase 3, row 7: the fused training shade's forward and backward
+    kernels against their plain versions, at the grad stage's real canonical
+    points and J^-1 of both nodes (the sampler's z tables of one step, 10
+    frames x 12,544 points) and at an N that is no multiple of the kernel's
+    128-point tile; seeded cotangents."""
+    from hold_tpu_torch.models.holdnet import _rays
+    from hold_tpu_torch.models.mlp import _apply_linear, resolve_weight_norm
+    from hold_tpu_torch.models.nodes import _mano_pose, _object_pose
+    from hold_tpu_torch.models.object_model import object_deform
+    from hold_tpu_torch.ops import fused_query as fq
+    from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.ops import fused_shade as fs
+    from hold_tpu_torch.utils.transforms import inverse_mat3
+
+    B = xc_hand.shape[0]
+    ray_dirs, cam_loc = _rays(batch)
+    cases = {}
+    with torch.no_grad():
+        for nid in ("right", "object"):
+            plans = scene.plans[nid]
+            imp = resolve_weight_norm(params[nid]["implicit"])
+            rend = resolve_weight_norm(params[nid]["rendering"])
+            tw = fq.pack_trunk_weights(imp, plans.implicit)
+            packs = (fq.embed_window(plans.implicit, sum(plans.barf_cfg) // 2, plans.barf_cfg, dev),
+                     tw, fr.pack_trunk_transposed(imp, plans.implicit, tw),
+                     fr.pack_color_weights(rend, imp))
+            if nid == "right":
+                _, cond = _mano_pose(params[nid], scene.servers[nid], batch, 25)
+                fb0 = fr.frame_bias0(rend, _apply_linear(rend["lin_pose"], cond))
+                xc, jinv = xc_hand, jinv_hand
+            else:
+                tfs = _object_pose(params[nid], scene.servers[nid], batch).obj_tfs
+                pts = (cam_loc[:, None] + z_obj[..., None] * ray_dirs[:, None]).reshape(B, -1, 3)
+                xc = object_deform(pts, tfs, inverse=True).contiguous()
+                jinv = inverse_mat3(tfs[:, :3, :3]).reshape(B, 1, 9).expand(
+                    B, xc.shape[1], 9).contiguous()
+                tc = params[nid]["frame_latent"][batch["frame_idx"]]
+                fb0 = fr.frame_bias0(rend, torch.zeros((B, 8), device=dev), tc)
+            cases[nid] = (xc, jinv, fb0.detach().contiguous(), *packs)
+        n_pad = cases["right"][0].shape[1] - 61
+        cases[f"right N={n_pad}"] = (cases["right"][0][:, :n_pad].contiguous(),
+                                     cases["right"][1][:, :n_pad].contiguous(),
+                                     *cases["right"][2:])
+    gen = torch.Generator(dev).manual_seed(7)
+    errs = {"fwd": {}, "bwd": {}}
+    failed = []
+    for label, args in cases.items():
+        Bc, N = args[0].shape[:2]
+        print(f"  fused_shade_train, {label} (B={Bc} N={N}):", flush=True)
+        got, ref = fs.shade_train_fwd_cuda(*args), fs.shade_train_plain(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"fused_shade_train.fwd: shape {tuple(g.shape)} or non-finite")
+        e = {"sdf": check_bf16_query("  sdf", got[0], ref[0]),
+             "rgb": check_close("  rgb", got[1], ref[1], 0.0, RENDER_RGB)}
+        d_n = (got[2] - ref[2]).abs().flatten()
+        p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
+        ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
+        print(f"    normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max {n_max:.3e} "
+              f"(tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError("fused_shade_train.fwd: normals disagree with the plain version")
+        e["normal"] = n_max
+        errs["fwd"][label] = e
+        tail = shade_tail_rows(fs, Bc, N)
+        # the cotangents of the JAX package's test loss, sum sdf^2 + |rgb|^2
+        # + |n_x|, which do not cancel over the points
+        g_nrm = torch.zeros_like(ref[2])
+        g_nrm[..., 0] = torch.sign(ref[2][..., 0])
+        print("    under the JAX test's loss:", flush=True)
+        res_l = shade_grad_check(torch, fs, args, (2.0 * ref[0], 2.0 * ref[1], g_nrm), tail,
+                                 LOSS_LIMITS)
+        failed += [f"{label} {k} (the JAX test's loss)" for k in res_l["failed"]]
+        cts = [torch.randn(s, generator=gen, device=dev) for s in ((Bc, N), (Bc, N, 3), (Bc, N, 3))]
+        print("    under seeded cotangents:", flush=True)
+        res = shade_grad_check(torch, fs, args, cts, tail)
+        # the tail rows alone: with the other points' cotangents zero, every
+        # sum over the points holds only theirs
+        mask = torch.zeros(Bc * N, device=dev)
+        mask[tail] = 1.0
+
+        def masked(m):
+            return [c * m.view((Bc, N) + (1,) * (c.dim() - 2)) for c in cts]
+
+        # control: the first 16 points of each frame summed into the frame
+        # before must fail the frame bias's limits
+        first = torch.zeros((Bc, N), device=dev)
+        first[1:, :16] = 1.0
+        moved = fs.shade_train_bwd_plain(*args, *masked(first.view(-1)))["fb0"]
+        ref_fb = res["ref"]["fb0"]
+        w, sh, _ = grad_reading(torch, ref_fb - moved + moved.roll(-1, 0), ref_fb)
+        share, cap = res["limits"]["fb0"]
+        ok = sh > share or w > cap
+        print(f"    control, each frame's first 16 points summed into the frame before: fb0 "
+              f"{w:.3f} ({sh:.1e}), limit {cap:g} ({share:g}) {'fails it, ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append(f"{label}: the frame bias's limits pass misplaced frame boundaries")
+
+        print(f"    the {len(tail)} tail rows alone (cotangents zero elsewhere):", flush=True)
+        res_t = shade_grad_check(torch, fs, args, masked(mask), tail)
+        failed += [f"{label} {k}" for k in res["failed"]]
+        failed += [f"{label} {k} (tail rows alone)" for k in res_t["failed"]]
+        if not (res["caught"] and res_t["caught"]):
+            failed.append(f"{label}: the limits pass the unrounded control")
+        kern = res["kernel"]
+        top = max((k for k in kern if k != "fb0"), key=lambda k: kern[k][0])
+        errs["bwd"][label] = {
+            "worst_part": top, "worst": kern[top][0], "fb0": kern["fb0"][0],
+            "sound_worst": max(v[0] for v in res["f64 products"].values()),
+            "tail_alone_worst": max(v[0] for v in res_t["kernel"].values()),
+            "jax_loss_worst": max(v[0] for v in res_l["kernel"].values()),
+            "max_abs_err": max(v[2] for v in kern.values())}
+        if N % fr.TILE:
+            # control: the plain version without the last partial 16-point
+            # block must fail the limits, or they could not see a kernel that
+            # dropped one
+            k = (Bc * N) % 16 or 16
+            drop = mask.clone()
+            drop[-k:] = 0.0
+            ref_t = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(mask)), None)
+            ctl = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(drop)), None)
+            caught = []
+            for p, r in ref_t.items():
+                w, sh, _ = grad_reading(torch, ctl[p], r)
+                share, cap = res_t["limits"][p]
+                if sh > share or w > cap:
+                    caught.append(p)
+            print(f"    control, the last {k} points dropped: the limits fail it on "
+                  f"{len(caught)} parts ({', '.join(caught[:6])}, ...) "
+                  f"{'ok' if caught else 'FAIL'}", flush=True)
+            if not caught:
+                failed.append(f"{label}: the limits pass a dropped last block")
+    args = cases["right"]
+    n = args[0].shape[0] * args[0].shape[1]
+    cts = [torch.randn(s, generator=gen, device=dev) for s in ((B, n // B), (B, n // B, 3),
+                                                               (B, n // B, 3))]
+    wbytes = ((fq.W_TOTAL + fr.T_TOTAL + fr.C_TOTAL) * 2.0 + (fq.F_TOTAL + fr.CB_TOTAL) * 4.0
+              + B * 256 * 4.0)
+    act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
+    shape = f"B={B} N={n // B} (hand; also the object and N={n // B - 61})"
+    for name, kern, plain, macs, f32_pp, bytes_pp, bytes_once in (
+        ("fused_shade_train.fwd", lambda: fs.shade_train_fwd_cuda(*args),
+         lambda: fs.shade_train_plain(*args), fs.SHADE_FWD_MACS, act, 76.0, wbytes),
+        ("fused_shade_train.bwd", lambda: fs.shade_train_bwd_cuda(*args, *cts),
+         lambda: fs.shade_train_bwd_plain(*args, *cts), fs.SHADE_BWD_MACS, 3 * act, 124.0,
+         wbytes * 3),
+    ):
+        ms = cuda_ms(torch, kern)
+        part = errs[name.split(".")[1]]
+        worst = max(e["max_abs_err"] if "max_abs_err" in e else max(e.values())
+                    for e in part.values())
+        record(name, worst, ms, cuda_ms(torch, plain, fill_ms=0.0), shape,
+               bound(2.0 * macs * n, f32_pp * n, bytes_pp * n + bytes_once), errors=part,
+               tflop_s=2.0 * macs * n / (ms * 1e-3) / 1e12)
+    if failed:
+        raise AssertionError(f"fused_shade_train.bwd disagrees with its plain version: {failed}")
 
 
 def render_batch(torch, seq, dev, n_rays):
@@ -527,8 +874,15 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
                tflop_s=fr.RENDER_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
 
 
-def agreement_check(torch, seq, args, cfg, dev) -> None:
-    """Phase 4: grad-stage loss and gradients, card kernels vs CPU plain path."""
+def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
+    """Phase 4: grad-stage loss and gradients, card kernels vs CPU plain path,
+    with the fused training shade or the chunked one (``--no_fused_train``).
+    The chunked path is held to 1e-4 (losses) and 2e-4 (gradients); the
+    fused one, whose bf16 roundings fall on different sides where the sums'
+    order differs, to 2e-3 (losses, the JAX package's fused-vs-chunked bound)
+    and each parameter's gradient to AGREE_LIMIT, beside two more CPU runs
+    read the same way: the plain path with float64 products (sound) and the
+    chunked f32 shade (the control)."""
     import numpy as np
 
     from hold_tpu_torch.models.holdnet import (
@@ -542,25 +896,26 @@ def agreement_check(torch, seq, args, cfg, dev) -> None:
     step, epoch = 300, 25  # hand loss targets active, pose conditioning on
     opt_model = dict(cfg["model"])
     batch_np = seq.sample_tempo_batch(np.random.RandomState(1), 1, 1, 16)
-    losses, grads = {}, {}
     params0 = init_scene_params(torch.Generator().manual_seed(3),
                                 build_scene(opt_model, dict(args), seq.scene_data(), "cpu"),
                                 seq.scene_data())
     scene_cpu = build_scene(opt_model, dict(args), seq.scene_data(), "cpu")
     draws_cpu = sample_step_draws(scene_cpu, 2, 16, torch.Generator().manual_seed(4))
-    z_vals = None
-    for device in (dev, torch.device("cpu")):
-        scene = build_scene(opt_model, dict(args), seq.scene_data(), device)
+    z_card = {}
+
+    def grad_stage(device, check_z: bool = False, fused: bool = fused_train):
+        scene = build_scene(opt_model, dict(args), seq.scene_data(), device, fused_train=fused)
+        if [scene.plans[nid].fused_train for nid in scene.node_ids] != [fused] * 2:
+            raise AssertionError(f"fused training shade not {fused} on every node")
         params = leaf_params(params0, device)
         batch = batch_to_device(batch_np, device)
-        z_dev = sample_all_z(params, scene, batch, None, step, epoch)
-        if z_vals is None:  # the card's sampler places the samples for both
+        if not z_card:  # the card's sampler places the samples for every run
             if not all(scene.plans[nid].fused_query for nid in scene.node_ids):
                 raise AssertionError("the slice's sampler is not the fused one")
-            z_vals = z_dev
-        else:  # fused query kernels on the card against their plain versions
-            for nid, ref in z_dev.items():
-                d = (z_vals[nid].cpu() - ref).abs()
+            z_card.update(sample_all_z(params, scene, batch, None, step, epoch))
+        elif check_z:  # fused query kernels on the card against their plain versions
+            for nid, ref in sample_all_z(params, scene, batch, None, step, epoch).items():
+                d = (z_card[nid].cpu() - ref).abs()
                 tol = 0.1 * float(torch.diff(ref, dim=1).median())
                 far = float((d > tol).float().mean())
                 ok = far <= Z_FAR_SHARE
@@ -570,7 +925,7 @@ def agreement_check(torch, seq, args, cfg, dev) -> None:
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     raise AssertionError(f"{nid}: card and CPU z tables disagree")
-        z = {k: v.to(device) for k, v in z_vals.items()}
+        z = {k: v.to(device) for k, v in z_card.items()}
         draws = {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device))
                  for k, v in draws_cpu.items()}
         out = holdnet_forward(params, scene, batch, empty_object_mesh_state(device), draws,
@@ -579,14 +934,44 @@ def agreement_check(torch, seq, args, cfg, dev) -> None:
         flat = flatten_params(params)
         names = [k for k, t in flat.items() if t.requires_grad]
         g = torch.autograd.grad(loss["loss"], [flat[k] for k in names], allow_unused=True)
-        losses[device.type] = {k: float(v.detach()) for k, v in loss.items()}
-        grads[device.type] = {k: (torch.zeros_like(flat[k]) if gi is None else gi).cpu()
-                              for k, gi in zip(names, g)}
+        return ({k: float(v.detach()) for k, v in loss.items()},
+                {k: (torch.zeros_like(flat[k]) if gi is None else gi).cpu()
+                 for k, gi in zip(names, g)})
+
+    losses, grads = {}, {}
+    losses["cuda"], grads["cuda"] = grad_stage(dev)
+    losses["cpu"], grads["cpu"] = grad_stage(torch.device("cpu"), check_z=True)
+    rtol = 2e-3 if fused_train else 1e-4
     for k, v in losses["cpu"].items():
         got = losses["cuda"][k]
         print(f"  {k}: card {got:.6f} cpu {v:.6f}", flush=True)
-        if not (math.isfinite(got) and abs(got - v) <= 1e-4 * abs(v) + 1e-5):
+        if not (math.isfinite(got) and abs(got - v) <= rtol * abs(v) + 1e-5):
             raise AssertionError(f"{k}: card and CPU disagree")
+    if fused_train:
+        with products_in_f64(torch):
+            _, grads["f64 products"] = grad_stage(torch.device("cpu"))
+        _, grads["chunked"] = grad_stage(torch.device("cpu"), fused=False)
+        read = {lab: {k: grad_reading(torch, grads[src][k], ref) for k, ref in grads["cpu"].items()}
+                for lab, src in (("kernel", "cuda"), ("f64 products", "f64 products"),
+                                 ("chunked", "chunked"))}
+        print(f"  {len(read['kernel'])} gradient tensors, worst |d| / bound (share beyond) against "
+              f"the CPU's, of the card | f64 products | chunked:", flush=True)
+        for lab, r in read.items():
+            w = max(r.values())
+            print(f"    {lab}: {sum(v[0] <= 1.0 for v in r.values())} tensors wholly within the "
+                  f"bound, worst {w[0]:.3f} (share {w[1]:.2e}), largest share "
+                  f"{max(v[1] for v in r.values()):.2e}", flush=True)
+        show = sorted(read["kernel"], key=lambda k: -max(read["kernel"][k][0],
+                                                         read["f64 products"][k][0]))[:12]
+        print("    the 12 worst, and every tensor that either fails:", flush=True)
+        failed, caught = grad_table(read, {k: AGREE_LIMIT for k in read["kernel"]}, show,
+                                    "chunked")
+        print(f"  the chunked control fails {len(caught)} of {len(read['kernel'])} tensors "
+              f"{'ok' if caught else 'FAIL'}", flush=True)
+        if failed or not caught:
+            raise AssertionError(f"gradients beyond their limit: {failed[:8]}, or the limit "
+                                 f"passes the chunked control")
+        return
     bad = []
     for k, ref in grads["cpu"].items():
         scale = float(ref.abs().max())
@@ -596,18 +981,22 @@ def agreement_check(torch, seq, args, cfg, dev) -> None:
           f"{len(bad)} outside", flush=True)
     if bad:
         raise AssertionError(f"gradients disagree: {bad[:8]}")
-    render_agreement(torch, seq, args, cfg, dev, params0)
 
 
-def render_agreement(torch, seq, args, cfg, dev, params0) -> None:
+def render_agreement(torch, seq, args, cfg, dev) -> None:
     """Phase 4, render: one chunk of 256 hand and object rays, the card's
     eval z tables given to both sides, holdnet_render with the fused render
     kernels on the card against their plain versions on the CPU, on the
     composited maps.  The rays' mean mask_prob must reach MASK_FLOOR, so
     that the maps compared carry the nodes' shade."""
-    from hold_tpu_torch.models.holdnet import build_scene, holdnet_render, sample_all_z
+    from hold_tpu_torch.models.holdnet import (
+        build_scene, holdnet_render, init_scene_params, sample_all_z,
+    )
     from hold_tpu_torch.utils.convert import leaf_params
 
+    params0 = init_scene_params(torch.Generator().manual_seed(3),
+                                build_scene(dict(cfg["model"]), dict(args), seq.scene_data(), "cpu"),
+                                seq.scene_data())
     maps, z_vals = {}, None
     for device in (dev, torch.device("cpu")):
         scene = build_scene(dict(cfg["model"]), dict(args), seq.scene_data(), device)
@@ -636,23 +1025,27 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
     """Phase 5, one run: ``run_training`` from counters at 0; checks the
     losses and that this path launched each of its kernels.  Returns the
     launch counts."""
-    from hold_tpu_torch.ops import fused_query, fused_render, knn, point_mesh
+    from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
     from hold_tpu_torch.train import run_training
 
-    path = "layer" if args.get("no_fused_sampler") else "fused"
-    print(f"  -- {path} sampler: {steps} steps", flush=True)
+    path = ("layer" if args.get("no_fused_sampler") else
+            "chunked" if args.get("no_fused_train") else "fused")
+    print(f"  -- {path}: {steps} steps", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mods = (knn, point_mesh, fused_query, fused_render)
+    mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
     for mod in mods:
         mod.reset_launch_counts()
-    _, scene, _, tracker, timer = run_training(args, cfg, seq=seq, max_steps=steps, device=dev)
+    params, scene, mesh_state, tracker, timer = run_training(args, cfg, seq=seq, max_steps=steps,
+                                                             device=dev)
     torch.cuda.synchronize()
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
-    if fused != (list(scene.node_ids) if path == "fused" else []):
-        raise AssertionError(f"{path} run: fused sampler on {fused}")
+    shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_train]
+    if (fused != (list(scene.node_ids) if path != "layer" else [])
+            or shade != (list(scene.node_ids) if path != "chunked" else [])):
+        raise AssertionError(f"{path} run: fused sampler on {fused}, fused shade on {shade}")
     with open(os.path.join(tracker.log_dir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
     if len(records) != steps:
@@ -676,7 +1069,83 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
     print(f"  data_ms {summ['data'] * 1e3:.3f}")
     print(f"  rays_per_s {rays / step_s:.1f} ({rays} rays per step, steps 1..{steps - 1})")
     print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)", flush=True)
+    train_profile(torch, seq, args, scene, params, mesh_state, dev, summ)
     return launches
+
+
+# kernel families of the device time: (family, substrings of kernel names)
+FAMILIES = (
+    ("fused_shade", ("fused_shade_fwd_kernel", "fused_shade_bwd_kernel", "wgrad_kernel",
+                     "colsum_kernel")),
+    ("fused_render", ("fused_render_kernel",)),
+    ("fused_query", ("fused_query_kernel",)),
+    ("knn", ("knn_", "min_vertex_dist")),
+    ("gemm", ("gemm", "xmma", "cutlass", "sm90_")),
+    ("memcpy", ("memcpy", "memset")),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("reduce", ("reduce",)),
+)
+
+
+def device_split(torch, prof) -> tuple:
+    """Device time (ms) and launches by kernel family from a profile."""
+    fams = {f: [0.0, 0] for f, _ in FAMILIES}
+    fams["other"] = [0.0, 0]
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        fam = next((f for f, keys in FAMILIES if any(k in name for k in keys)), "other")
+        fams[fam][0] += e.time_range.elapsed_us() / 1e3
+        fams[fam][1] += 1
+    total = sum(ms for ms, _ in fams.values())
+    split = ", ".join(f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in fams.items() if n)
+    return total, sum(n for _, n in fams.values()), split
+
+
+def train_profile(torch, seq, args, scene, params, mesh_state, dev, summ) -> None:
+    """Phase 5, report only: one more step of the run's path under
+    torch.profiler, its sampler and grad stages profiled apart; device time
+    and launches by kernel family, and the busy share, device time over the
+    run's mean unprofiled stage wall."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hold_tpu_torch.models.holdnet import holdnet_forward, sample_all_z, sample_step_draws
+    from hold_tpu_torch.models.losses import compute_losses
+    from hold_tpu_torch.train import batch_to_device, optimizer_for
+
+    opt = optimizer_for(args, params)
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(5), BATCH_SIZE, 1,
+                                                   RAYS_PER_FRAME), dev)
+    B, P = batch["uv"].shape[:2]
+    gen = torch.Generator(dev).manual_seed(5)
+    step = int(args["total_step"])
+
+    def sampler():
+        return sample_all_z(params, scene, batch, gen, step, 0)
+
+    def grad(z):
+        draws = sample_step_draws(scene, B, P, gen)
+        opt.zero_grad(set_to_none=True)
+        out = holdnet_forward(params, scene, batch, mesh_state, draws, step, 0, z_vals_dict=z)
+        compute_losses(batch, out, scene.node_ids, step)["loss"].backward()
+        opt.step()
+
+    z = sampler()
+    grad(z)
+    torch.cuda.synchronize()
+    for stage, fn in (("sampler", sampler), ("grad", lambda: grad(z))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total, n, split = device_split(torch, prof)
+        if not total:
+            print(f"  {stage} device split: not measured (the profiler saw no device events)")
+            continue
+        print(f"  {stage} device split (torch.profiler, one step): {split}; device total "
+              f"{total:.3f} ms in {n} launches, busy share {total / (summ[stage] * 1e3):.3f} of "
+              f"the {summ[stage] * 1e3:.3f} ms stage", flush=True)
 
 
 def render_slice(torch, seq, data_root, args, dev) -> dict:
@@ -686,14 +1155,14 @@ def render_slice(torch, seq, data_root, args, dev) -> dict:
     import numpy as np
 
     from hold_tpu_torch import render_cli
-    from hold_tpu_torch.ops import fused_query, fused_render, knn, point_mesh
+    from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
     from hold_tpu_torch.render.renderer import make_chunk_renderer
     from hold_tpu_torch.utils.checkpoint import load_experiment
 
     exp = os.path.join(args["log_root"], args["exp_key"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mods = (knn, point_mesh, fused_query, fused_render)
+    mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
     for mod in mods:
         mod.reset_launch_counts()
     records = render_cli.main([
@@ -763,26 +1232,13 @@ def render_profile(torch, seq, exp: str, dev, frame_s: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         render_frame(params, scene, fb, PIXEL_PER_BATCH, chunk_fn)
         torch.cuda.synchronize()
-    fams = {k: [0.0, 0] for k in ("fused_render", "fused_query", "gemm", "memcpy", "other")}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = e.name.lower()
-        fam = next((f for f, keys in (("fused_render", ("fused_render_kernel",)),
-                                      ("fused_query", ("fused_query_kernel",)),
-                                      ("gemm", ("gemm", "xmma", "cutlass")),
-                                      ("memcpy", ("memcpy", "memset")))
-                    if any(k in name for k in keys)), "other")
-        fams[fam][0] += e.time_range.elapsed_us() / 1e3
-        fams[fam][1] += 1
-    total = sum(ms for ms, _ in fams.values())
+    total, n, split = device_split(torch, prof)
     if not total:
         print("  device split of a frame: not measured (the profiler saw no device events)")
         return
-    split = ", ".join(f"{k} {ms:.3f} ms / {n} launches" for k, (ms, n) in fams.items())
-    print(f"  device split of a frame (torch.profiler): {split}; device total {total:.3f} ms, "
-          f"busy share {total / (frame_s * 1e3):.3f} of the {frame_s * 1e3:.3f} ms frame",
-          flush=True)
+    print(f"  device split of a frame (torch.profiler): {split}; device total {total:.3f} ms in "
+          f"{n} launches, busy share {total / (frame_s * 1e3):.3f} of the {frame_s * 1e3:.3f} ms "
+          f"frame", flush=True)
 
 
 def main() -> int:
@@ -836,9 +1292,15 @@ def main() -> int:
     results = kernel_checks(torch, seq, args, cfg, dev)
 
     phase("4 card vs CPU agreement on a small batch")
-    agreement_check(torch, seq, args, cfg, dev)
+    print("  -- chunked shade (--no_fused_train)", flush=True)
+    agreement_check(torch, seq, args, cfg, dev, fused_train=False)
+    print("  -- fused training shade", flush=True)
+    agreement_check(torch, seq, args, cfg, dev, fused_train=True)
+    print("  -- render", flush=True)
+    render_agreement(torch, seq, args, cfg, dev)
 
-    phase(f"5 the slice: run_training, {STEPS} steps fused, {LAYER_STEPS} layer by layer")
+    phase(f"5 the slice: run_training, {STEPS} steps fused, {LAYER_STEPS} layer by layer, "
+          f"{LAYER_STEPS} with the chunked shade")
     from hold_tpu_torch.utils.config import Cfg
 
     launches = {
@@ -846,6 +1308,9 @@ def main() -> int:
         "layer": slice_run(torch, seq, Cfg({**args, "no_fused_sampler": True,
                                             "exp_key": "chip_smoke_layer"}),
                            cfg, dev, LAYER_STEPS),
+        "chunked": slice_run(torch, seq, Cfg({**args, "no_fused_train": True,
+                                              "exp_key": "chip_smoke_chunked"}),
+                             cfg, dev, LAYER_STEPS),
     }
 
     phase(f"6 the render slice: render_cli, {RENDER_FRAMES} frames at render_downsample "

@@ -90,12 +90,15 @@ def _object_render_opt(opt_model) -> dict:
 
 
 def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
-                fused_render: bool = True) -> Scene:
+                fused_render: bool = True, fused_train: bool = True) -> Scene:
     """Static scene state on ``device``.  ``fused_sampler=False`` makes every
     node's sampler query the trunk layer by layer (the JAX package's
     ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
-    shade run the chunked grad-stage shade (``HOLD_NO_FUSED_RENDER=1``);
-    otherwise nodes whose nets the fused kernels support use them."""
+    shade run the chunked grad-stage shade (``HOLD_NO_FUSED_RENDER=1``, which
+    turns the fused training shade off too, as in the JAX package),
+    ``fused_train=False`` every node's grad stage run the chunked shade
+    (``HOLD_NO_FUSED_TRAIN=1``); otherwise nodes whose nets the fused kernels
+    support use them."""
     if opt_model.get("proposal", {}).get("enabled", False):
         raise NotImplementedError(
             "the proposal net is not ported: set model.proposal.enabled to false"
@@ -136,6 +139,8 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             sampler=sampler_cfg, barf_cfg=barf_cfg, class_id=CLASS_IDS[nid],
             fused_query=fused_sampler and use_fused_query(implicit, sampler_cfg),
             fused_render=fused_render and supports_fused_render(implicit, rendering),
+            fused_train=(fused_train and fused_render
+                         and supports_fused_render(implicit, rendering)),
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,

@@ -13,9 +13,13 @@ canonical field.  Training runs in two stages:
   points with the ``knn_inverse_warp`` kernel and runs the trunk in torch.
 - ``*_node_forward``: the grad stage.  The hand's warp and inverse skinning
   Jacobian are the ``knn_inverse_warp_diff`` and ``knn_jacobian_inverse``
-  kernels; the shade (SDF, its gradient for the normal, features, color)
-  runs in float32, chunked over the points, with the SDF gradient taken
-  with ``create_graph=True`` so the loss differentiates through it.
+  kernels.  By default (``NodePlans.fused_train``) the shade (SDF, its
+  gradient for the normal, features, color) is the fused training shade
+  (``ops/fused_shade.py``: one forward kernel per node, and a backward that
+  recomputes it and applies the second-order chain, its J^-1 gradient going
+  on to the Jacobian kernel's backward).  Otherwise it runs in float32,
+  chunked over the points, with the SDF gradient taken with
+  ``create_graph=True`` so the loss differentiates through it.
 
 Rendering (``*_node_render``, the JAX forwards at ``training=False``) runs
 under ``torch.no_grad()`` at the eval sampler's z table.  By default
@@ -51,6 +55,7 @@ from ..ops.fused_render import (
     pack_color_weights,
     pack_trunk_transposed,
 )
+from ..ops.fused_shade import fused_shade_train
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
 from ..render.ray_sampler import SamplerConfig, error_bound_z_vals
 from ..utils.transforms import inverse_mat3, safe_norm
@@ -78,6 +83,7 @@ class NodePlans(NamedTuple):
     max_dist: float = 0.1
     fused_query: bool = False  # sampler queries through ops/fused_query.py
     fused_render: bool = False  # render shade through ops/fused_render.py
+    fused_train: bool = False  # grad-stage shade through ops/fused_shade.py
 
 
 def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
@@ -146,6 +152,17 @@ def _normalize(n: torch.Tensor) -> torch.Tensor:
     return n / torch.clamp(safe_norm(n, keepdim=True), min=1e-6)
 
 
+def _fused_shade(imp, rend, plans, x_c, jinv9, fb0, step):
+    """The fused training shade at (B, N) canonical points, with the packs
+    built from the live params so that their gradients reach them."""
+    # the transposed pack from the params too, not from the forward pack, so
+    # that the two packs' gradients add up in f32 at the params, as in JAX
+    return fused_shade_train(
+        x_c, jinv9, fb0, embed_window(plans.implicit, step, plans.barf_cfg, x_c.device),
+        pack_trunk_weights(imp, plans.implicit), pack_trunk_transposed(imp, plans.implicit),
+        pack_color_weights(rend, imp))
+
+
 def _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f):
     return {
         "color": rgb.reshape(B * P, S_f, 3),
@@ -180,7 +197,23 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
     )
     # inverse skinning Jacobian at the canonical points (weights queried
     # against the CANONICAL vertices)
-    jinv9 = knn_jacobian_inverse(x_c, verts_c, skin_w, tfs, K=plans.knn_k).reshape(-1, 9)
+    jinv9 = knn_jacobian_inverse(x_c, verts_c, skin_w, tfs, K=plans.knn_k)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "cond_pose": cond_pose,
+        "tfs": tfs,
+        "verts_posed": verts_posed,
+        "v_posed": srv_out.v_posed,
+        "jnts": srv_out.jnts,
+        "outlier": outlier,
+    }
+    if plans.fused_train:
+        pe = _apply_linear(rend["lin_pose"], cond_pose).float()  # (B, 8), once per frame
+        sdf, rgb, normals = _fused_shade(imp, rend, plans, x_c, jinv9, frame_bias0(rend, pe), step)
+        sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
+        return _node_outputs(plans, nparams, z_vals, sdf.reshape(-1), rgb, normals, B, P,
+                             S_f), sample_dict
+    jinv9 = jinv9.reshape(-1, 9)
     view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
     # lin_pose once per frame, then broadcast to the frame's points
     pe_pp = _flat_per_point(_apply_linear(rend["lin_pose"], cond_pose).float(), P * S_f)
@@ -199,16 +232,7 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), pe_pp, view, jinv9),
                                     B * P * S_f)
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
-    sample_dict = {
-        "canonical_pts": x_c.reshape(B, P, S_f, 3),
-        "sample_sdf": sdf.reshape(B, P, S_f),
-        "cond_pose": cond_pose,
-        "tfs": tfs,
-        "verts_posed": verts_posed,
-        "v_posed": srv_out.v_posed,
-        "jnts": srv_out.jnts,
-        "outlier": outlier,
-    }
+    sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict
 
 
@@ -224,6 +248,18 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
     N = B * P * S_f
     pts = (cam_loc[:, None, :] + z_vals[:, :, None] * ray_dirs[:, None, :]).reshape(B, P * S_f, 3)
     x_c = object_deform(pts, tfs, inverse=True)
+    sample_dict = {
+        "canonical_pts": x_c.reshape(B, P, S_f, 3),
+        "tfs": tfs,
+    }
+    if plans.fused_train:
+        # J^-1 = Rinv, the same for every point of a frame
+        jinv9 = inverse_mat3(tfs[:, :3, :3]).reshape(B, 1, 9).expand(B, P * S_f, 9)
+        fb0 = frame_bias0(rend, torch.zeros((B, 8), device=pts.device), time_code)
+        sdf, rgb, normals = _fused_shade(imp, rend, plans, x_c, jinv9, fb0, step)
+        sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
+        return _node_outputs(plans, nparams, z_vals, sdf.reshape(-1), rgb, normals, B, P,
+                             S_f), sample_dict
     # rigid deformer: J = R per frame, n = g R^-1
     rinv = inverse_mat3(tfs[:, :3, :3])[:, None].expand(B, P * S_f, 3, 3).reshape(N, 3, 3)
     tc_pp = _flat_per_point(time_code, P * S_f)
@@ -241,11 +277,7 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N)
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
-    sample_dict = {
-        "canonical_pts": x_c.reshape(B, P, S_f, 3),
-        "sample_sdf": sdf.reshape(B, P, S_f),
-        "tfs": tfs,
-    }
+    sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict
 
 

@@ -45,6 +45,11 @@ _SIGNATURES = {
     "hold_fused_hand_render": [_P] * 18 + [_I] * 7 + [_P],
     "hold_fused_object_render": [_P] * 15 + [_I] * 4 + [_P],
     "hold_fused_render_scratch_words": [],
+    "hold_fused_shade_fwd": [_P] * 13 + [_I] * 4 + [_P],
+    "hold_fused_shade_bwd": [_P] * 23 + [_I] * 7 + [_P],
+    "hold_fused_shade_scratch_words": [],
+    "hold_fused_shade_ws_cols": [_I],
+    "hold_fused_shade_bwd_pack_size": [],
 }
 
 _lock = threading.Lock()

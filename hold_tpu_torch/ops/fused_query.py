@@ -104,7 +104,6 @@ def _pad(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     return out
 
 
-@torch.no_grad()
 def pack_trunk_weights(resolved: dict, plan: dict) -> dict:
     """Resolved ``{'w', 'b'}`` layers -> the kernel's two flat buffers.
 
@@ -116,10 +115,12 @@ def pack_trunk_weights(resolved: dict, plan: dict) -> dict:
     divided BEFORE the bf16 round; biases and the head stay f32.  Layer 3's
     256-E outputs are padded to 256 rows of zeros (its pad activations are
     softplus100(0) = log(2)/100, not 0), so the matching W4h columns are
-    zero."""
+    zero.  Built under grad mode (the fused training shade), the buffers
+    keep the autograd graph back to ``resolved``; the sampler and the render
+    build them under ``torch.no_grad``."""
     if not supports_fused_query(plan):
         raise ValueError("unsupported trunk plan for the fused sampler query")
-    layers = [{k: v.detach().float() for k, v in l.items()} for l in resolved["layers"]]
+    layers = [{k: v.float() for k, v in l.items()} for l in resolved["layers"]]
     E = _emb_width(plan["multires"])
     H3 = H - E
     s2 = float(math.sqrt(2.0))

@@ -112,22 +112,20 @@ def _flat(mats: dict, layout: tuple, dtype) -> dict:
     return pack
 
 
-@torch.no_grad()
 def pack_trunk_transposed(resolved: dict, plan: dict, fwd: dict | None = None) -> dict:
     """Transposed bf16 trunk for the reverse pass, plus the feature head.
 
     The transposes of ``pack_trunk_weights``'s matrices (``fwd``, built here
     when not given), so forward and reverse see identical effective weights
     (the skip split and its /sqrt(2) included); ``feat_w`` is rows 1: of the
-    output layer, (out, in)."""
+    output layer, (out, in).  Grad mode as for ``pack_trunk_weights``."""
     if fwd is None:
         fwd = pack_trunk_weights(resolved, plan)
     mats = {f"{n}T": fwd[n].t() for n in ("W0", "W1", "W2", "W3", "W4h", "W4e", "W5", "W6", "W7")}
-    mats["feat_w"] = resolved["layers"][8]["w"].detach().float()[1:]
+    mats["feat_w"] = resolved["layers"][8]["w"].float()[1:]
     return _flat(mats, _T_LAYOUT, torch.bfloat16)
 
 
-@torch.no_grad()
 def pack_color_weights(resolved: dict, implicit_resolved: dict) -> dict:
     """Resolved rendering layers -> the kernel's bf16 weights and f32 biases.
 
@@ -136,8 +134,9 @@ def pack_color_weights(resolved: dict, implicit_resolved: dict) -> dict:
     embedding (6:14) and time code (270:) columns are constant over a frame:
     they and b0 enter as ``frame_bias0``.  ``"f32"`` holds the feature head's
     bias (rows 1: of the implicit output layer), then the biases of layers
-    1, 2, 3 and 4 (3 used), 256 each."""
-    layers = [{k: v.detach().float() for k, v in l.items()} for l in resolved["layers"]]
+    1, 2, 3 and 4 (3 used), 256 each.  Grad mode as for
+    ``pack_trunk_weights``."""
+    layers = [{k: v.float() for k, v in l.items()} for l in resolved["layers"]]
     w0 = layers[0]["w"]
     mats = {
         "C0a": _pad(w0[:, 0:6], H, C0A),
@@ -146,7 +145,7 @@ def pack_color_weights(resolved: dict, implicit_resolved: dict) -> dict:
         "C4": _pad(layers[4]["w"], 8, H),
     }
     pack = _flat(mats, _C_LAYOUT, torch.bfloat16)
-    featb = implicit_resolved["layers"][8]["b"].detach().float()[1:]
+    featb = implicit_resolved["layers"][8]["b"].float()[1:]
     cb = torch.cat([featb, layers[1]["b"], layers[2]["b"], layers[3]["b"],
                     _pad(layers[4]["b"][None], 1, H)[0]])
     pack["f32"] = cb
@@ -180,6 +179,12 @@ def render_shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0):
     """Trunk, heads, normal and colour at canonical points: xc (B, N, 3),
     jinv (B, N, 9) row-major, fb0 (B, 256) -> (sdf (B, N), rgb (B, N, 3),
     normal (B, N, 3))."""
+    return _shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0, eps=0.0)
+
+
+def _shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0, eps: float):
+    """The shade of the render and of the training shade's forward, with the
+    normal divided by max(sqrt(|n|^2 + eps), 1e-6); differentiable."""
     B, N = xc.shape[:2]
     x = xc.reshape(-1, 3).float()
     L = _multires(window)
@@ -228,7 +233,7 @@ def render_shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0):
 
     j9 = jinv.reshape(-1, 9).float()
     n = torch.stack([sum(g[:, i] * j9[:, 3 * i + j] for i in range(3)) for j in range(3)], -1)
-    n = n / torch.clamp(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True)), min=1e-6)
+    n = n / torch.clamp(torch.sqrt(torch.sum(n * n, dim=-1, keepdim=True) + eps), min=1e-6)
 
     inp = torch.cat([x, n, torch.zeros_like(x[:, :1]).expand(-1, C0A - 6)], dim=-1)
     fb_pp = fb0.float()[:, None, :].expand(B, N, H).reshape(-1, H)

@@ -177,6 +177,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
     p.add_argument("--no_fused_sampler", action="store_true")
+    p.add_argument("--no_fused_train", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
     return p

@@ -74,10 +74,11 @@ def test_pack_and_window_match_jax(kind):
     plan, jres, tres = _net(kind, seed=0)
     jpack = jax.device_get(jfq.pack_trunk_weights(jres, plan))
     # the same resolved f32 weights on both sides: the pack must be exact
-    tpack = tfq.pack_trunk_weights(params_from_jax(jax.device_get(jres)), plan)
+    with torch.no_grad():
+        tpack = tfq.pack_trunk_weights(params_from_jax(jax.device_get(jres)), plan)
 
     def f32(t):
-        return np.asarray(t.float().numpy() if isinstance(t, torch.Tensor) else
+        return np.asarray(t.detach().float().numpy() if isinstance(t, torch.Tensor) else
                           np.asarray(t, np.float32))
 
     # the port's own weight-norm resolve rounds a few weights differently

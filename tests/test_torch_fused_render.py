@@ -88,7 +88,7 @@ def _nets(kind, seed):
 
 
 def _f32(x):
-    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+    return x.detach().float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
 
 
 def test_supports_fused_render_gates():

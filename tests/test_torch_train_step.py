@@ -74,7 +74,9 @@ def toy(pallas_knn):
     model = _toy_model()
     jscene = jhn.build_scene(model, ARGS, sd)
     jparams = jhn.init_scene_params(jax.random.PRNGKey(0), jscene, sd)
-    tscene = thn.build_scene(model, ARGS, sd, "cpu")
+    # the JAX package's CPU default is the chunked shade (its fused one runs on
+    # a TPU): compare the port's chunked shade with it
+    tscene = thn.build_scene(model, ARGS, sd, "cpu", fused_train=False)
     batch_np = seq.sample_tempo_batch(np.random.RandomState(0), 1, num_sample=8)
     jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     z = jax.jit(lambda p, b: jhn.sample_all_z(p, jscene, b, None, jnp.asarray(STEP),
@@ -219,7 +221,8 @@ def test_port_entry_points_import_no_jax():
     """The port's entry points and modules load neither JAX nor anything of
     the JAX package (hold_tpu)."""
     mods = ("hold_tpu_torch.train", "hold_tpu_torch.render_cli", "hold_tpu_torch.data.synthetic",
-            "hold_tpu_torch.ops.fused_render", "hold_tpu_torch.render.renderer",
+            "hold_tpu_torch.ops.fused_render", "hold_tpu_torch.ops.fused_shade",
+            "hold_tpu_torch.render.renderer",
             "hold_tpu_torch.utils.checkpoint", "hold_tpu_torch.utils.logger",
             "hold_tpu_torch.utils.mesh", "hold_tpu_torch.models.specs",
             "hold_tpu_torch.mano.model_data", "chip_smoke")
