@@ -10,10 +10,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
 3. Kernel checks: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes one full-width training step gives
    it, with the tolerance stated; kernel and plain times from CUDA events
-   over enough launches to fill 100 ms.  The fused training shade (row 7)
+   over enough launches to fill 100 ms.  The fused query's four forms run
+   again at shapes that are no multiple of its 128-point tile, and the hand's
+   on one frame alone.  The fused training shade (row 7)
    runs forward and backward at the grad stage's real canonical points and
    J^-1 of both nodes (10 frames x 12,544 points) and at an N that is no
-   multiple of its tile; its backward part by part (each matrix and bias
+   multiple of its tile; its backward's time by kernel (torch.profiler); its
+   backward part by part (each matrix and bias
    of the packs, the rows where its work divides), beside the plain version
    with float64 products and without its bf16 roundings, under the JAX
    package's test loss, under seeded cotangents, and under those with only
@@ -33,7 +36,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rays = 1280 rays per step, three times: 5 steps with the defaults (fused
    sampler, fused training shade), 3 steps with ``--no_fused_sampler`` (the
    layer-by-layer sampler), 3 steps with ``--no_fused_train`` (the chunked
-   shade), every kernel's launch counter set to 0 just before each.  Every
+   shade, each chunk recomputed in the backward) and 2 more of those with
+   ``--no_remat`` (for its peak memory), every kernel's launch counter set to
+   0 just before each.  Every
    loss must be finite and every kernel of a path launched in its run, and
    none off it; one more step of each run under torch.profiler gives the
    device time of each stage by kernel family.
@@ -486,6 +491,36 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
                mean_abs_err=float((got - ref).abs().mean()),
                trunk_tflop_s=fq.TRUNK_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
 
+    # the same four at shapes that are no multiple of the kernel's 128-point
+    # tile (37 rays x 100 samples a frame; a buffer 61 points short), and the
+    # hand's z form on one frame alone
+    Pr, Sr = 37, 100
+    rays_r = tuple(t.reshape(B, P, 3)[:, :Pr].reshape(-1, 3).contiguous() for t in rays[:2]) + (
+        z_t[:, :Pr, :Sr].contiguous(),)
+    pts_r = pts_s[:, :pts_s.shape[1] - 61].contiguous()
+    rays_1 = (rays[0][:P].contiguous(), rays[1][:P].contiguous(), z_t[:1].contiguous())
+    hand_1 = (verts[:1].contiguous(), skin[:1].contiguous(), tfs[:1].contiguous(), *hand[3:])
+    for name, kern, plain, shape in (
+        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_r, *hand),
+         lambda: fq.hand_query_plain(fq.points_from_rays_z(*rays_r), *hand), f"B={B} P={Pr} S={Sr}"),
+        ("fused_object_sampler_sdf_z", lambda: fq.fused_object_sampler_sdf_z(*rays_r, *obj),
+         lambda: fq.object_query_plain(fq.points_from_rays_z(*rays_r), *obj),
+         f"B={B} P={Pr} S={Sr}"),
+        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_r, *hand),
+         lambda: fq.hand_query_plain(pts_r, *hand), f"B={B} N={pts_r.shape[1]}"),
+        ("fused_object_sampler_sdf", lambda: fq.fused_object_sampler_sdf(pts_r, *obj),
+         lambda: fq.object_query_plain(pts_r, *obj), f"B={B} N={pts_r.shape[1]}"),
+        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_1, *hand_1),
+         lambda: fq.hand_query_plain(fq.points_from_rays_z(*rays_1), *hand_1),
+         f"B=1 P={P} S={S}"),
+    ):
+        got, ref = kern().reshape(-1), plain().reshape(-1)
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {shape}: shape {tuple(got.shape)} or non-finite values")
+        results[name].setdefault("ragged", {})[shape] = check_bf16_query(f"{name} {shape}", got,
+                                                                         ref)
+
     # 10, 11: the KNN blend kernels at the sampler warp's shape
     for name, fn in (("knn_blend_weights", knn.knn_blend_weights),
                      ("knn_blend_weights_t", knn.knn_blend_weights_t)):
@@ -502,7 +537,7 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
                bound(0, knn_cost(n_s, V, J), n_s * (13 + 4 * J) + B * V * (12 + 4 * J)))
 
     shade_checks(torch, scene, params, batch, zs["object"], xc, got_j.detach().contiguous(), dev,
-                 record)
+                 record, results)
     render_checks(torch, seq, scene, params, dev, record)
     return results
 
@@ -525,13 +560,13 @@ def shade_tail_rows(fs, B: int, N: int, width: int = 64) -> list:
     """Flattened point indices within ``width`` of a place where the
     backward's work divides: a chunk's first and last points, the blocks
     that split its sums (colsum_kernel's, and wgrad_kernel's rounded to its
-    32-point steps), every frame boundary, the last point."""
+    pipeline steps), every frame boundary, the last point."""
     total = B * N
     _, chunks = fs.bwd_chunks(total)
     edges = set(range(0, total + 1, N))
     for c0, rows, splits in chunks:
         per = -(-rows // splits)
-        for step in (per, -(-per // 32) * 32):
+        for step in (per, -(-per // fs.WGRAD_STEP) * fs.WGRAD_STEP):
             edges.update(range(c0, c0 + rows, step))
         edges.add(c0 + rows)
     return sorted({p for e in edges for p in range(max(0, e - width), min(total, e + width))})
@@ -619,7 +654,8 @@ def shade_grad_check(torch, fs, args, cts, tail, kinds: dict = GRAD_LIMITS) -> d
     return out
 
 
-def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, record) -> None:
+def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, record,
+                 results) -> None:
     """Phase 3, row 7: the fused training shade's forward and backward
     kernels against their plain versions, at the grad stage's real canonical
     points and J^-1 of both nodes (the sampler's z tables of one step, 10
@@ -776,6 +812,25 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
         record(name, worst, ms, cuda_ms(torch, plain, fill_ms=0.0), shape,
                bound(2.0 * macs * n, f32_pp * n, bytes_pp * n + bytes_once), errors=part,
                tflop_s=2.0 * macs * n / (ms * 1e-3) / 1e12)
+    # the backward's device time by kernel: three more calls under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fs.shade_train_bwd_cuda(*args, *cts)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = next((k for k in ("fused_shade_bwd_kernel", "wgrad_kernel", "colsum_kernel")
+                        if k in e.name), "other (memset, copies, elementwise)")
+            split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 3e3
+    if split:
+        results["fused_shade_train.bwd"]["split_ms"] = split
+        print("  fused_shade_train.bwd by kernel (torch.profiler, ms a call over 3 calls): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
+    else:
+        print("  fused_shade_train.bwd by kernel: not measured (the profiler saw no device events)")
     if failed:
         raise AssertionError(f"fused_shade_train.bwd disagrees with its plain version: {failed}")
 
@@ -1030,7 +1085,7 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
 
     path = ("layer" if args.get("no_fused_sampler") else
             "chunked" if args.get("no_fused_train") else "fused")
-    print(f"  -- {path}: {steps} steps", flush=True)
+    print(f"  -- {path}{' (--no_remat)' if args.get('no_remat') else ''}: {steps} steps", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
@@ -1075,10 +1130,13 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
 
 # kernel families of the device time: (family, substrings of kernel names)
 FAMILIES = (
-    ("fused_shade", ("fused_shade_fwd_kernel", "fused_shade_bwd_kernel", "wgrad_kernel",
-                     "colsum_kernel")),
+    ("fused_shade fwd", ("fused_shade_fwd_kernel",)),
+    ("fused_shade bwd rows", ("fused_shade_bwd_kernel",)),
+    ("fused_shade wgrad", ("wgrad_kernel",)),
+    ("fused_shade colsum", ("colsum_kernel",)),
     ("fused_render", ("fused_render_kernel",)),
-    ("fused_query", ("fused_query_kernel",)),
+    ("fused_query warp", ("query_embed_kernel",)),
+    ("fused_query trunk", ("query_trunk_kernel",)),
     ("knn", ("knn_", "min_vertex_dist")),
     ("gemm", ("gemm", "xmma", "cutlass", "sm90_")),
     ("memcpy", ("memcpy", "memset")),
@@ -1312,6 +1370,10 @@ def main() -> int:
                                               "exp_key": "chip_smoke_chunked"}),
                              cfg, dev, LAYER_STEPS),
     }
+    # the chunked shade once more with every chunk's graph kept, for its peak
+    # memory beside the recomputing default's
+    slice_run(torch, seq, Cfg({**args, "no_fused_train": True, "no_remat": True,
+                               "exp_key": "chip_smoke_no_remat"}), cfg, dev, 2)
 
     phase(f"6 the render slice: render_cli, {RENDER_FRAMES} frames at render_downsample "
           f"{RENDER_DOWNSAMPLE}")

@@ -90,7 +90,8 @@ def _object_render_opt(opt_model) -> dict:
 
 
 def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
-                fused_render: bool = True, fused_train: bool = True) -> Scene:
+                fused_render: bool = True, fused_train: bool = True,
+                remat: bool = True) -> Scene:
     """Static scene state on ``device``.  ``fused_sampler=False`` makes every
     node's sampler query the trunk layer by layer (the JAX package's
     ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
@@ -98,7 +99,9 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
     turns the fused training shade off too, as in the JAX package),
     ``fused_train=False`` every node's grad stage run the chunked shade
     (``HOLD_NO_FUSED_TRAIN=1``); otherwise nodes whose nets the fused kernels
-    support use them."""
+    support use them.  ``remat=False`` makes the chunked shade keep every
+    chunk's graph instead of recomputing it in the backward
+    (``HOLD_NO_REMAT=1``)."""
     if opt_model.get("proposal", {}).get("enabled", False):
         raise NotImplementedError(
             "the proposal net is not ported: set model.proposal.enabled to false"
@@ -141,6 +144,7 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             fused_render=fused_render and supports_fused_render(implicit, rendering),
             fused_train=(fused_train and fused_render
                          and supports_fused_render(implicit, rendering)),
+            remat=remat,
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,

@@ -19,7 +19,8 @@ canonical field.  Training runs in two stages:
   recomputes it and applies the second-order chain, its J^-1 gradient going
   on to the Jacobian kernel's backward).  Otherwise it runs in float32,
   chunked over the points, with the SDF gradient taken with
-  ``create_graph=True`` so the loss differentiates through it.
+  ``create_graph=True`` so the loss differentiates through it, each chunk
+  recomputed in the backward (``NodePlans.remat``).
 
 Rendering (``*_node_render``, the JAX forwards at ``training=False``) runs
 under ``torch.no_grad()`` at the eval sampler's z table.  By default
@@ -84,6 +85,7 @@ class NodePlans(NamedTuple):
     fused_query: bool = False  # sampler queries through ops/fused_query.py
     fused_render: bool = False  # render shade through ops/fused_render.py
     fused_train: bool = False  # grad-stage shade through ops/fused_shade.py
+    remat: bool = True  # the chunked shade recomputes each chunk in the backward
 
 
 def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
@@ -146,6 +148,19 @@ def _shade_sdf_and_grad(imp, plans, xc, step, create_graph=True):
     if not create_graph:
         xc, sdf, h = xc.detach(), sdf.detach(), h.detach()
     return xc, sdf, h, g
+
+
+def _tree_tensors(*trees) -> tuple:
+    """Every tensor of nested dicts and lists: what a chunk body closes over."""
+    out = []
+    for t in trees:
+        if isinstance(t, dict):
+            out.extend(_tree_tensors(*t.values()))
+        elif isinstance(t, (list, tuple)):
+            out.extend(_tree_tensors(*t))
+        elif isinstance(t, torch.Tensor):
+            out.append(t)
+    return tuple(out)
 
 
 def _normalize(n: torch.Tensor) -> torch.Tensor:
@@ -230,7 +245,8 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
         return sdf, rgb, nrm
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), pe_pp, view, jinv9),
-                                    B * P * S_f)
+                                    B * P * S_f, remat=plans.remat,
+                                    closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict
@@ -275,7 +291,8 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
         )
         return sdf, rgb, nrm
 
-    sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N)
+    sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N,
+                                    remat=plans.remat, closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict

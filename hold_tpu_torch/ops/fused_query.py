@@ -1,11 +1,13 @@
 """Fused sampler SDF query (counterpart of hold_tpu/ops/fused_query.py).
 
 The error-bound sampler evaluates each node's canonical SDF at every point of
-every refinement round, with no gradient.  One CUDA kernel
-(``csrc/fused_query.cu``) does the whole query in one pass: the world point
-(``cam + z*dir`` from the z table, or a point buffer) -> canonical space (the
-hand's KNN blend and inverse skinning, the object's rigid inverse) -> the
-Fourier/BARF embedding -> the 8x256 softplus100 trunk -> the SDF head.
+every refinement round, with no gradient.  ``csrc/fused_query.cu`` does the
+whole query in two kernels a call: the world point (``cam + z*dir`` from the
+z table, or a point buffer) -> canonical space (the hand's KNN blend and
+inverse skinning, the object's rigid inverse) -> the Fourier/BARF embedding,
+96 bytes a point handed on through a scratch buffer; then the 8x256
+softplus100 trunk -> the SDF head on the tensor cores (``wgmma``), its weights
+in the shared-memory layout of ``tile_for_kernel``.
 
 The numbers are the TPU kernel's (``_emb_mlp_head``), not the port's
 layer-by-layer bf16 trunk: the embedding and every hidden activation are
@@ -41,9 +43,11 @@ from ..models.mlp import softplus100
 
 H = 256  # trunk width
 EMB_PAD = 48  # embedding columns the kernel multiplies (three MMA k-steps)
-# hand vertices (16 B each) that fit a CTA's shared memory (227 KB) beside
-# the 128-point embedding tile
-VMAX = (232_448 - 128 * (EMB_PAD + 8) * 2) // 16
+TILE = 128  # points a CTA owns (csrc/cta_gemm.cuh TILE_M)
+EMB_TILE_BYTES = TILE * 128  # a tile's embedding rows as the trunk kernel reads them
+# hand vertices (16 B each) that fit a CTA's shared memory (227 KB) beside the
+# warp step's bone transforms (1 KB)
+VMAX = (232_448 - 1024) // 16
 
 # the packed bf16 trunk, in csrc/fused_query.cu's order: (name, rows, cols),
 # every matrix (out, in) row-major
@@ -52,6 +56,12 @@ _LAYOUT = (
     ("W4e", H, EMB_PAD), ("W5", H, H), ("W6", H, H), ("W7", H, H),
 )
 W_TOTAL = sum(r * c for _, r, c in _LAYOUT)
+# the kernel's layout (csrc/cta_gemm.cuh): every matrix cut along k into slabs
+# of 64 columns (a 48-column matrix is one slab, its last 16 columns zero),
+# the slabs in the order the layers consume them (``_LAYOUT``'s)
+SLAB_K = 64
+SLAB = H * SLAB_K  # bf16 values a slab holds (32 KB)
+N_SLABS = sum(-(-c // SLAB_K) for _, _, c in _LAYOUT)
 F_TOTAL = 8 * H + H + 1  # bias (8, 256) | head row (256) | head bias
 # the trunk's FLOPs a point as the kernel multiplies it (zero pads included),
 # for the rate it reaches
@@ -147,6 +157,60 @@ def pack_trunk_weights(resolved: dict, plan: dict) -> dict:
     return pack
 
 
+def slab_offset(slab: int, n, k):
+    """Where element (n, k) of a slab sits, in bf16 values from the start of
+    the tiled buffer: rows of 64 values (128 bytes) whose 16-byte groups are
+    XOR-ed with the row's number mod 8, the 128-byte swizzle wgmma reads."""
+    return slab * SLAB + n * SLAB_K + (((k // 8) ^ (n % 8)) * 8) + k % 8
+
+
+_TILE_INDEX: dict = {}
+
+
+def _tile_index(device) -> tuple:
+    """(gather, scatter): ``tiled = cat(pack, [0])[gather]`` and
+    ``pack = tiled[scatter]``, built once per device."""
+    key = str(device)
+    if key not in _TILE_INDEX:
+        gather = torch.full((N_SLABS * SLAB,), W_TOTAL, dtype=torch.long)
+        scatter = torch.empty((W_TOTAL,), dtype=torch.long)
+        off, slab = 0, 0
+        for _, r, c in _LAYOUT:
+            n = torch.arange(r)[:, None].expand(r, c)
+            k = torch.arange(c)[None, :].expand(r, c)
+            dst = slab_offset(slab + k // SLAB_K, n, k % SLAB_K).reshape(-1)
+            src = torch.arange(off, off + r * c)
+            gather[dst] = src
+            scatter[src] = dst
+            off += r * c
+            slab += -(-c // SLAB_K)
+        _TILE_INDEX[key] = (gather.to(device), scatter.to(device))
+    return _TILE_INDEX[key]
+
+
+def tile_for_kernel(pack: dict) -> torch.Tensor:
+    """The packed trunk in the kernel's layout: ``N_SLABS`` slabs of 32 KB, each
+    the shared-memory image one pipeline stage needs, so that one bulk copy
+    fills a stage.  A permutation of ``pack["bf16"]`` with zeros in the 48-column
+    matrices' last 16 columns (``untile_from_kernel`` gives the pack back bit
+    for bit); under grad mode it keeps the graph to the pack."""
+    flat = pack["bf16"]
+    gather, _ = _tile_index(flat.device)
+    return torch.cat([flat, flat.new_zeros(1)])[gather]
+
+
+def untile_from_kernel(tiled: torch.Tensor) -> torch.Tensor:
+    """``tile_for_kernel``'s inverse: the flat bf16 pack."""
+    return tiled[_tile_index(tiled.device)[1]]
+
+
+def _kernel_weights(pack: dict) -> torch.Tensor:
+    """``tile_for_kernel(pack)``, made once per pack and kept in it."""
+    if "tiled" not in pack:
+        pack["tiled"] = tile_for_kernel(pack)
+    return pack["tiled"]
+
+
 def embed_window(plan: dict, step, barf_cfg, device=None) -> torch.Tensor:
     """(E,) f32 embedding window: ones, or the BARF window at ``step`` for a
     ``barf`` node (the JAX package's ``_fused_embed_plan`` column 3)."""
@@ -234,6 +298,7 @@ def _check_trunk(window, pack) -> int:
     _cuda.check(window, "window", (window.shape[0],))
     _cuda.check(pack["bf16"], "pack['bf16']", (W_TOTAL,), torch.bfloat16)
     _cuda.check(pack["f32"], "pack['f32']", (F_TOTAL,))
+    _cuda.check(_kernel_weights(pack), "pack['tiled']", (N_SLABS * SLAB,), torch.bfloat16)
     return multires
 
 
@@ -260,6 +325,12 @@ def _ptr(*ts) -> list:
     return [t.data_ptr() for t in ts]
 
 
+def _emb_scratch(B: int, n: int, device) -> torch.Tensor:
+    """The embedding tiles the warp step hands to the trunk kernel: 16 KB a
+    128-point tile of a frame."""
+    return torch.empty((B * -(-n // TILE) * EMB_TILE_BYTES,), dtype=torch.uint8, device=device)
+
+
 # --------------------------------------------------------------------------
 # Public wrappers (stop-gradient by contract)
 # --------------------------------------------------------------------------
@@ -277,7 +348,8 @@ def fused_hand_sampler_sdf_z(ray_dirs, cam_loc, z, verts, skin_weights, tfs, win
         out = torch.empty((B, P, S), dtype=torch.float32, device=z.device)
         _cuda.launch("hold_fused_hand_sdf_z",
                      *_ptr(ray_dirs, cam_loc, z, verts, skin_weights, tfs, window,
-                           pack["bf16"], pack["f32"], out), B, P, S, V, J, K, multires)
+                           pack["tiled"], pack["f32"], _emb_scratch(B, P * S, z.device), out),
+                     B, P, S, V, J, K, multires)
         LAUNCHES["fused_hand_sampler_sdf_z"] += 1
         return out
     _require_cpu(z)
@@ -296,8 +368,8 @@ def fused_object_sampler_sdf_z(ray_dirs, cam_loc, z, tf_inv12, window, pack):
         multires = _check_trunk(window, pack)
         out = torch.empty((B, P, S), dtype=torch.float32, device=z.device)
         _cuda.launch("hold_fused_object_sdf_z",
-                     *_ptr(ray_dirs, cam_loc, z, tf_inv12, window, pack["bf16"], pack["f32"],
-                           out), B, P, S, multires)
+                     *_ptr(ray_dirs, cam_loc, z, tf_inv12, window, pack["tiled"], pack["f32"],
+                           _emb_scratch(B, P * S, z.device), out), B, P, S, multires)
         LAUNCHES["fused_object_sampler_sdf_z"] += 1
         return out
     _require_cpu(z)
@@ -315,8 +387,8 @@ def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int =
         multires = _check_trunk(window, pack)
         out = torch.empty((B, N), dtype=torch.float32, device=pts.device)
         _cuda.launch("hold_fused_hand_sdf",
-                     *_ptr(pts, verts, skin_weights, tfs, window, pack["bf16"], pack["f32"],
-                           out), B, N, V, J, K, multires)
+                     *_ptr(pts, verts, skin_weights, tfs, window, pack["tiled"], pack["f32"],
+                           _emb_scratch(B, N, pts.device), out), B, N, V, J, K, multires)
         LAUNCHES["fused_hand_sampler_sdf"] += 1
         return out
     _require_cpu(pts)
@@ -334,8 +406,8 @@ def fused_object_sampler_sdf(pts, tf_inv12, window, pack):
         multires = _check_trunk(window, pack)
         out = torch.empty((B, N), dtype=torch.float32, device=pts.device)
         _cuda.launch("hold_fused_object_sdf",
-                     *_ptr(pts, tf_inv12, window, pack["bf16"], pack["f32"], out), B, N,
-                     multires)
+                     *_ptr(pts, tf_inv12, window, pack["tiled"], pack["f32"],
+                           _emb_scratch(B, N, pts.device), out), B, N, multires)
         LAUNCHES["fused_object_sampler_sdf"] += 1
         return out
     _require_cpu(pts)

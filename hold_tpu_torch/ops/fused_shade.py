@@ -20,8 +20,11 @@ order and with the bf16 roundings of the CUDA kernel: its plain version.
 normal (B, N, 3)) and is differentiable in x_c, J^-1, the frame bias and
 every pack buffer, not in the window.  Given CPU tensors it runs the two
 plain functions; given CUDA tensors it launches the kernels or raises, and
-never falls back.  Each launch adds one to ``LAUNCHES[name]``: the forward
-once a call, the backward once a chunk of ``CHUNK`` points.
+never falls back.  The backward kernel takes every product's weights as one
+stream of shared-memory stage images (``tile_shade_bwd``), made from the packs
+at each call; the weights' gradients come back in the packs' layout.  Each
+launch adds one to ``LAUNCHES[name]``: the forward once a call, the backward
+once a chunk of ``CHUNK`` points.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from .fused_query import (
     EMB_PAD,
     F_TOTAL,
     H,
+    SLAB,
+    SLAB_K,
     W_TOTAL,
     _multires,
     _ptr,
@@ -60,15 +65,28 @@ from ..models.mlp import softplus100
 # each forward product
 SHADE_FWD_MACS = RENDER_MACS
 SHADE_BWD_MACS = 3 * RENDER_MACS
-# points a chunk of the backward: its workspace holds ~35 KB a point
+# points a chunk of the backward: its workspace holds ~39 KB a point
 CHUNK = 32768
-BWD_ROWS = 64  # points a CTA of the backward kernel
+BWD_ROWS = 128  # points a CTA of the backward kernel (csrc/cta_gemm.cuh TILE_M)
+WGRAD_STEP = 64  # points a pipeline stage of the weight-gradient kernel
 
-# the backward-only pack, in csrc/fused_shade.cu's order: (name, rows, cols),
-# the colour weights and the feature head transposed to [in][out]
-_B_LAYOUT = (("C0aT", C0A, H), ("C0fT", H, H), ("C1T", H, H), ("C2T", H, H), ("C3T", H, H),
-             ("C4T", H, 16), ("feat_wT", H, H))
-B_TOTAL = sum(r * c for _, r, c in _B_LAYOUT)
+# The backward kernel's weight stream: every product's weights as the 32 KB
+# stages its shared-memory ring takes, in the order a CTA consumes them.  A
+# name alone is a (256, K) matrix cut along k into slabs of 64 columns, one a
+# stage (K = 48 or 16: one slab, zero-padded); a name with N is an (N, 256)
+# matrix whose four k-slabs share one stage.  From the trunk pack (W*), the
+# transposed pack (W*T, feat_w) and the colour pack (C*), whose transposes are
+# made here.
+_TRUNK_UP = ("W0", "W1", "W2", "W3", "W4h", "W4e", "W5", "W6", "W7")
+_TRUNK_DOWN = ("W7T", "W6T", "W5T", ("W4eT", 48), "W4hT", "W3T", "W2T", "W1T", ("W0T", 48))
+BWD_STREAM = (
+    *_TRUNK_UP, "feat_w",                                   # 1: trunk forward, feature head
+    *_TRUNK_DOWN,                                           # 1: the reverse pass
+    "C0a", "C0f", "C1", "C2", "C3", ("C4", 8),              # 1: colour MLP
+    "C4T", "C3T", "C2T", "C1T", ("C0aT", 16), "C0fT",       # 2: its backward
+    *_TRUNK_UP,                                             # 5: up the reverse chain
+    "feat_wT", *_TRUNK_DOWN,                                # 7: down the trunk
+)
 
 LAUNCHES = {"fused_shade_train.fwd": 0, "fused_shade_train.bwd": 0}
 
@@ -96,14 +114,50 @@ def _unpack(tw_b, tw_f, bw_b, cw_b, cw_f) -> tuple:
     return tw, bw, cw
 
 
-def pack_shade_bwd(bw: dict, cw: dict) -> torch.Tensor:
-    """The backward's transposed colour weights and feature head, one flat
-    bf16 buffer (copies of the packs' entries, no rounding)."""
-    c4t = torch.zeros((H, 16), dtype=torch.bfloat16, device=cw["bf16"].device)
-    c4t[:, :8] = cw["C4"].t()
-    mats = {"C0aT": cw["C0a"].t(), "C0fT": cw["C0f"].t(), "C1T": cw["C1"].t(),
-            "C2T": cw["C2"].t(), "C3T": cw["C3"].t(), "C4T": c4t, "feat_wT": bw["feat_w"].t()}
-    return torch.cat([mats[n].reshape(-1) for n, _, _ in _B_LAYOUT]).contiguous()
+def _swizzled_slabs(m: torch.Tensor) -> torch.Tensor:
+    """(N, K) -> (K / 64 slabs, N * 64): each slab's N rows of 64 values (128
+    bytes) with the row's 16-byte groups XOR-ed with the row number mod 8
+    (``ops/fused_query.py`` ``slab_offset``); K zero-padded to a multiple of 64."""
+    N, K = m.shape
+    pad = -K % SLAB_K
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    groups = m.reshape(N, -1, 8, 8)  # row, slab, 16-byte group, value
+    rows = torch.arange(N, device=m.device)
+    src = torch.arange(8, device=m.device)[None, :] ^ (rows[:, None] % 8)
+    src = src[:, None, :, None].expand(N, groups.shape[1], 8, 8)
+    return torch.gather(groups, 2, src).permute(1, 0, 2, 3).reshape(-1, N * SLAB_K)
+
+
+@torch.no_grad()
+def tile_shade_bwd(tw: dict, bw: dict, cw: dict) -> torch.Tensor:
+    """The backward kernel's weight stream (``BWD_STREAM``): a flat bf16
+    buffer of 32 KB stages.  Copies of the packs' entries, no rounding; no
+    gradient flows through it (the kernel returns the weights' gradients in
+    the packs' layout)."""
+    c4 = torch.zeros((16, H), dtype=torch.bfloat16, device=cw["bf16"].device)
+    c4[:8] = cw["C4"]
+    mats = {**{k: tw[k] for k, _, _ in _LAYOUT}, **{k: bw[k] for k, _, _ in _T_LAYOUT},
+            **{k: cw[k] for k, _, _ in _C_LAYOUT}, "feat_wT": bw["feat_w"].t(),
+            "C0aT": cw["C0a"].t(), "C0fT": cw["C0f"].t(), "C1T": cw["C1"].t(),
+            "C2T": cw["C2"].t(), "C3T": cw["C3"].t(), "C4T": c4.t()}
+    images = {}
+    for entry in dict.fromkeys(BWD_STREAM):
+        name, narrow = (entry, 0) if isinstance(entry, str) else entry
+        slabs = _swizzled_slabs(mats[name][:narrow] if narrow else mats[name])
+        if narrow:  # the four k-slabs of narrow rows, one after the other, in one stage
+            slabs = slabs.reshape(1, -1)
+        images[entry] = torch.nn.functional.pad(slabs, (0, SLAB - slabs.shape[1])).reshape(-1)
+    return torch.cat([images[e] for e in BWD_STREAM])
+
+
+def _stages(entry) -> int:
+    """Stages an entry of ``BWD_STREAM`` takes: one for a narrow matrix or one
+    of at most 64 columns, else a stage a slab."""
+    return 1 if not isinstance(entry, str) or entry in ("W0", "W4e", "C0a", "C4T") else H // SLAB_K
+
+
+N_BWD_SLABS = sum(map(_stages, BWD_STREAM))
 
 
 # --------------------------------------------------------------------------
@@ -310,8 +364,8 @@ def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw) -> tuple:
 
 def bwd_chunks(total: int) -> tuple:
     """The backward's split of ``total`` flattened points: the workspace's
-    rows and, per chunk, (first point, points, the blocks of ~2048 points
-    each sum over them is split into)."""
+    rows (whole CTAs of ``BWD_ROWS`` points) and, per chunk, (first point,
+    points, the blocks of ~2048 points each sum over them is split into)."""
     cap = -(-min(total, CHUNK) // BWD_ROWS) * BWD_ROWS
     chunks = []
     for c0 in range(0, total, cap):
@@ -330,9 +384,9 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
     _cuda.check(g_nrm, "g_nrm", (B, N, 3))
     dev = xc.device
     lib = _cuda.lib()
-    bpack = pack_shade_bwd(bw, cw)
-    if bpack.numel() != lib.hold_fused_shade_bwd_pack_size():
-        raise RuntimeError("backward pack layout differs from the kernel's")
+    slabs = tile_shade_bwd(tw, bw, cw)
+    if slabs.numel() != lib.hold_fused_shade_bwd_slabs() * SLAB:
+        raise RuntimeError("the backward's weight stream differs from the kernel's")
     cap, chunks = bwd_chunks(B * N)
     wsb = torch.empty(cap * lib.hold_fused_shade_ws_cols(0), dtype=torch.bfloat16, device=dev)
     wsf = torch.empty(cap * lib.hold_fused_shade_ws_cols(1), dtype=torch.float32, device=dev)
@@ -342,10 +396,10 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
              "cw_b": torch.zeros(C_TOTAL, device=dev), "cw_f": torch.zeros(CB_TOTAL, device=dev)}
     for c0, rows, splits in chunks:
         _cuda.launch("hold_fused_shade_bwd",
-                     *_ptr(xc, jinv9, fb0, window, g_sdf, g_rgb, g_nrm, tw["bf16"], tw["f32"],
-                           bw["bf16"], cw["bf16"], cw["f32"], bpack, wsb, wsf, grads["xc"],
-                           grads["jinv9"], grads["tw_b"], grads["tw_f"], grads["bw_b"],
-                           grads["cw_b"], grads["cw_f"], grads["fb0"]),
+                     *_ptr(xc, jinv9, fb0, window, g_sdf, g_rgb, g_nrm, tw["f32"], cw["f32"],
+                           slabs, wsb, wsf, grads["xc"], grads["jinv9"], grads["tw_b"],
+                           grads["tw_f"], grads["bw_b"], grads["cw_b"], grads["cw_f"],
+                           grads["fb0"]),
                      B * N, N, c0, rows, cap, multires, splits)
         LAUNCHES["fused_shade_train.bwd"] += 1
     return grads

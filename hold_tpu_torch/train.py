@@ -5,7 +5,8 @@ sampler under ``torch.no_grad()`` (its queries through the fused query
 kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
 render + loss + backward grad stage (each node's shade through the fused
 training shade's kernels; ``--no_fused_train`` runs the chunked shade with
-its double backward instead) and one Adam step.  Adam has the
+its double backward instead, each chunk recomputed in the backward unless
+``--no_remat``) and one Adam step.  Adam has the
 reference's two learning-rate groups (pose tables at 0.1x lr); the object
 scale stays fixed.  Scalars go to
 ``<log_root>/<exp_key>/metrics.jsonl`` (``utils/logger.py``), and the final
@@ -123,7 +124,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     seed = int(args.get("seed", 0))
     scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
                         fused_sampler=not args.get("no_fused_sampler", False),
-                        fused_train=not args.get("no_fused_train", False))
+                        fused_train=not args.get("no_fused_train", False),
+                        remat=not args.get("no_remat", False))
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 

@@ -178,6 +178,8 @@ def build_argparser() -> argparse.ArgumentParser:
     # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
     p.add_argument("--no_fused_sampler", action="store_true")
     p.add_argument("--no_fused_train", action="store_true")
+    # HOLD_NO_REMAT=1: the chunked shade keeps every chunk's graph
+    p.add_argument("--no_remat", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
     return p

@@ -14,7 +14,12 @@ in interpret mode.  Checked:
   1.6e-3 / 2.4e-5, in both the z and the buffer form;
 - the z tables of the sampler stage, fused in both packages, at a tenth of
   the median sample spacing;
-- which configurations take the fused path.
+- which configurations take the fused path;
+- the kernel-layout step (``tile_for_kernel``): a permutation of the pack with
+  zero pads, inverted bit for bit by ``untile_from_kernel``, one element of
+  each matrix at the place the layout documented in ``csrc/cta_gemm.cuh``
+  gives it, the graph kept under grad mode, and no trace of it in a pack that
+  went through a wrapper on the CPU.
 
 The CUDA kernels are held against the plain versions on the card (marked
 ``gpu``; skipped without one).
@@ -241,6 +246,64 @@ def test_fused_sampler_configurations(toy):
     trunk = 2.0 * 483_584 * (64 * 2) * 1280  # MACs a point x points per step, one node
     assert 2 * trunk < flops < 2.1 * trunk
     assert tfq.sampler_query_flops_per_step(off, 1280) == 0.0
+
+
+@pytest.mark.parametrize("kind", ["hand", "object"])
+def test_kernel_layout_is_a_permutation_of_the_pack(kind):
+    plan, _, tres = _net(kind, seed=3)
+    with torch.no_grad():
+        pack = tfq.pack_trunk_weights(tres, plan)
+    tiled = tfq.tile_for_kernel(pack)
+    assert tiled.dtype == torch.bfloat16 and tiled.shape == (30 * 256 * 64,)
+    assert tfq.N_SLABS == 30 and tfq.SLAB == 16384
+    # the inverse gives the pack back, bit for bit
+    assert torch.equal(tfq.untile_from_kernel(tiled).view(torch.int16),
+                       pack["bf16"].view(torch.int16))
+    # a permutation plus zeros: the same multiset of bit patterns
+    bits = torch.sort(tiled.view(torch.int16)[tiled.view(torch.int16) != 0]).values
+    ref = pack["bf16"].view(torch.int16)
+    assert torch.equal(bits, torch.sort(ref[ref != 0]).values)
+    # one element of each matrix, by the header's formula written out: slab-major,
+    # rows of 128 bytes, the row's 16-byte groups XOR-ed with the row number mod 8
+    first = {"W0": 0, "W1": 1, "W2": 5, "W3": 9, "W4h": 13, "W4e": 17, "W5": 18, "W6": 22,
+             "W7": 26}
+    rng = np.random.RandomState(0)
+    raw = tiled.view(torch.int16)
+    for name, rows, cols in tfq._LAYOUT:
+        n, k = int(rng.randint(rows)), int(rng.randint(cols))
+        byte = (first[name] + k // 64) * 32768 + n * 128 + ((((k % 64) // 8) ^ (n % 8)) * 16) \
+            + (k % 8) * 2
+        assert raw[byte // 2] == pack[name].view(torch.int16)[n, k], name
+        assert tfq.slab_offset(first[name] + k // 64, n, k % 64) == byte // 2
+    # the 48-column matrices' slabs hold zeros in columns 48..63
+    for name in ("W0", "W4e"):
+        slab = tiled[first[name] * tfq.SLAB:(first[name] + 1) * tfq.SLAB].view(256, 64)
+        groups = torch.arange(8)[None, :] ^ (torch.arange(256)[:, None] % 8)  # logical k / 8
+        assert not slab.view(256, 8, 8)[groups >= 6].any()
+
+
+def test_kernel_layout_keeps_the_graph_and_stays_off_the_cpu_path():
+    plan, _, tres = _net("object", seed=4)
+    leaves = [l["w"].detach().clone().requires_grad_(True) for l in tres["layers"]]
+    res = {"layers": [{"w": w, "b": l["b"]} for w, l in zip(leaves, tres["layers"])]}
+    pack = tfq.pack_trunk_weights(res, plan)
+    tiled = tfq.tile_for_kernel(pack)
+    assert tiled.requires_grad
+    cot = torch.tensor(np.random.RandomState(1).randn(tiled.shape[0]), dtype=torch.float32)
+    (tiled.float() * cot).sum().backward()
+    # the cotangent of a tiled element (rounded to bf16 by the pack's cast)
+    # lands on the weight it came from
+    n, k = 5, 70
+    at = tfq.slab_offset(1 + k // 64, n, k % 64)
+    assert leaves[1].grad[n, k] == cot[at].bfloat16().float()
+    assert all(w.grad is not None and w.grad.abs().max() > 0 for w in leaves[:8])
+    # a wrapper given CPU tensors runs the plain version and never tiles
+    with torch.no_grad():
+        cpu_pack = tfq.pack_trunk_weights(tres, plan)
+    pts = torch.tensor(np.random.RandomState(2).randn(1, 5, 3) * 0.1, dtype=torch.float32)
+    tf12 = torch.tensor([[1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]])
+    tfq.fused_object_sampler_sdf(pts, tf12, tfq.embed_window(plan, None, BARF), cpu_pack)
+    assert "tiled" not in cpu_pack
 
 
 @pytest.fixture

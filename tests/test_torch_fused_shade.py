@@ -245,7 +245,69 @@ def test_mac_counts():
     # cores at 989 TFLOP/s
     assert round(2 * fs.SHADE_FWD_MACS * 125_440 / 989e12 * 1e3, 4) == 0.3165
     assert round(2 * fs.SHADE_BWD_MACS * 125_440 / 989e12 * 1e3, 4) == 0.9495
-    assert fs.B_TOTAL == 16 * 256 + 4 * 256 * 256 + 256 * 16 + 256 * 256
+    # the backward's weight stream: 38 products of 256 x 256 in four stages each, 12 narrow ones
+    assert fs.N_BWD_SLABS == 38 * 4 + 12 == 164
+
+
+@pytest.mark.parametrize("total", [1, 127, 129, 12_483 * 3, 125_440, 32_768 + 1, 65_536])
+def test_bwd_chunks_cover_every_point_once(total):
+    """Whole CTAs of the backward's 128-point tile in the workspace; the chunks
+    tile [0, total) with no gap and no overlap whatever ``total`` is."""
+    cap, chunks = fs.bwd_chunks(total)
+    assert cap % fs.BWD_ROWS == 0 and fs.BWD_ROWS == 128
+    assert cap <= -(-fs.CHUNK // fs.BWD_ROWS) * fs.BWD_ROWS
+    seen = np.zeros(total, np.int64)
+    for c0, rows, splits in chunks:
+        assert 0 < rows <= cap and splits >= 1
+        seen[c0:c0 + rows] += 1
+        # the sums' blocks cover the chunk's rows, wgrad's in whole pipeline steps
+        per = -(-(-(-rows // splits)) // fs.WGRAD_STEP) * fs.WGRAD_STEP
+        assert per * splits >= rows
+    assert (seen == 1).all()
+
+
+def test_backward_weight_stream_layout(case):
+    """``tile_shade_bwd``: 164 stages of 32 KB in the order the backward kernel
+    consumes them; its first 30 are the fused query's layout of the trunk; a
+    spot element of a full, a 16-column and a narrow matrix sits where
+    ``csrc/cta_gemm.cuh`` documents; nothing of it carries a gradient."""
+    tw, bw, cw = _packs(case["timp"], case["trend"], case["iplan"], grad=True)
+    stream = fs.tile_shade_bwd(tw, bw, cw)
+    assert stream.dtype == torch.bfloat16 and not stream.requires_grad
+    assert stream.shape == (fs.N_BWD_SLABS * tfq.SLAB,) and fs.N_BWD_SLABS == 164
+    raw = stream.view(torch.int16)
+    assert torch.equal(raw[:30 * tfq.SLAB], tfq.tile_for_kernel(tw).detach().view(torch.int16))
+
+    def first_stage(entry):
+        at = 0
+        for e in fs.BWD_STREAM:
+            if e == entry:
+                return at
+            at += fs._stages(e)
+        raise KeyError(entry)
+
+    def bits(t):
+        return t.detach().contiguous().view(torch.int16)
+
+    def in_slab(n, k):  # the value's place in its slab: rows of 64, 16-byte groups swizzled
+        return n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+
+    # a (256, 256) matrix: stage = first + k / 64, rows of 128 bytes, swizzled
+    n, k = 201, 150
+    assert raw[(first_stage("W6T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["W6T"])[n, k]
+    # the colour net's 16-column layer 0 segment: one stage, columns 16.. zero
+    n, k = 77, 5
+    st = first_stage("C0a") * tfq.SLAB
+    assert raw[st + in_slab(n, k)] == bits(cw["C0a"])[n, k]
+    assert not stream[st:st + tfq.SLAB].view(256, 8, 8)[
+        (torch.arange(8)[None, :] ^ (torch.arange(256)[:, None] % 8)) >= 2].any()
+    # a narrow (48, 256) matrix: its four k-slabs of 48 rows in one stage
+    n, k = 40, 200
+    st = first_stage(("W4eT", 48)) * tfq.SLAB
+    assert raw[st + (k // 64) * 48 * 64 + in_slab(n, k)] == bits(bw["W4eT"])[n, k]
+    # the transposes made here: C2T[n][k] = C2[k][n]
+    n, k = 9, 130
+    assert raw[(first_stage("C2T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(cw["C2"])[k, n]
 
 
 def test_frame_bias_gradient_noise():
