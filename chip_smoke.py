@@ -210,6 +210,29 @@ def cuda_ms(torch, fn, fill_ms: float = 100.0, max_reps: int = 5000) -> float:
     return timed(min(max(3, math.ceil(fill_ms / max(once, 1e-3))), max_reps))
 
 
+def kernel_split(torch, label: str, fn, keys: tuple, calls: int = 3) -> dict | None:
+    """Device ms a call of ``fn`` by kernel (``keys``: substrings of kernel
+    names; the rest as "other"), from torch.profiler over ``calls`` calls;
+    printed under ``label``, and None when the profiler saw no device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = next((k for k in keys if k in e.name), "other (memset, copies, elementwise)")
+            split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / (1e3 * calls)
+    if not split:
+        print(f"  {label} by kernel: not measured (the profiler saw no device events)", flush=True)
+        return None
+    print(f"  {label} by kernel (torch.profiler, ms a call over {calls} calls): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
+    return split
+
+
 def bound(tc_flops: float, f32_flops: float, nbytes: float) -> dict:
     """The least time the card could take: the largest of the tensor-core
     operations at the bf16 peak, the other operations at the f32 peak (the
@@ -798,8 +821,10 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
               + B * 256 * 4.0)
     act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
     shape = f"B={B} N={n // B} (hand; also the object and N={n // B - 61})"
+    # the forward timed with its weight stream made, as the op makes it once a call
+    slabs = fs.tile_shade_bwd(*args[4:])
     for name, kern, plain, macs, f32_pp, bytes_pp, bytes_once in (
-        ("fused_shade_train.fwd", lambda: fs.shade_train_fwd_cuda(*args),
+        ("fused_shade_train.fwd", lambda: fs.shade_train_fwd_cuda(*args, slabs),
          lambda: fs.shade_train_plain(*args), fs.SHADE_FWD_MACS, act, 76.0, wbytes),
         ("fused_shade_train.bwd", lambda: fs.shade_train_bwd_cuda(*args, *cts),
          lambda: fs.shade_train_bwd_plain(*args, *cts), fs.SHADE_BWD_MACS, 3 * act, 124.0,
@@ -812,25 +837,12 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
         record(name, worst, ms, cuda_ms(torch, plain, fill_ms=0.0), shape,
                bound(2.0 * macs * n, f32_pp * n, bytes_pp * n + bytes_once), errors=part,
                tflop_s=2.0 * macs * n / (ms * 1e-3) / 1e12)
-    # the backward's device time by kernel: three more calls under the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fs.shade_train_bwd_cuda(*args, *cts)
-        torch.cuda.synchronize()
-    split = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = next((k for k in ("fused_shade_bwd_kernel", "wgrad_kernel", "colsum_kernel")
-                        if k in e.name), "other (memset, copies, elementwise)")
-            split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / 3e3
+    # the backward's device time by kernel
+    split = kernel_split(torch, "fused_shade_train.bwd",
+                         lambda: fs.shade_train_bwd_cuda(*args, *cts),
+                         ("fused_shade_bwd_kernel", "wgrad_kernel", "colsum_kernel"))
     if split:
         results["fused_shade_train.bwd"]["split_ms"] = split
-        print("  fused_shade_train.bwd by kernel (torch.profiler, ms a call over 3 calls): "
-              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items())), flush=True)
-    else:
-        print("  fused_shade_train.bwd by kernel: not measured (the profiler saw no device events)")
     if failed:
         raise AssertionError(f"fused_shade_train.bwd disagrees with its plain version: {failed}")
 
@@ -902,31 +914,42 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
          act + 24, wbytes + 48),
     ):
         args = inputs[nid]
-        got, ref = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"{name}: shape {tuple(g.shape)} or non-finite values")
-        err = check_bf16_query(f"{name} sdf", got[0], ref[0])
-        errs = {"sdf": err}
-        errs["x_c"] = check_close(f"{name} x_c", got[4], ref[4], 1e-5, 1e-5)
-        errs["dist"] = check_close(f"{name} dist", got[3], ref[3], 0.0, 1e-5)
-        errs["rgb"] = check_close(f"{name} rgb", got[1], ref[1], 0.0, RENDER_RGB)
-        d_n = (got[2] - ref[2]).abs().flatten()
-        p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
-        ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
-        print(f"  {name} normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max {n_max:.3e} "
-              f"(tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError(f"{name}: normals disagree with the plain version")
-        n = got[0].numel()
+        n = args[0].shape[1]
+        # the chunk, then its first N - 61 points: no multiple of the shade's tile
+        ragged = (args[0][:, :n - 61].contiguous(), *args[1:])
+        read = {}
+        for tag, a in (("", args), (f" N={n - 61}", ragged)):
+            got, ref = kern(*a), plain(*a)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{name}{tag}: shape {tuple(g.shape)} or non-finite values")
+            e = {"sdf": check_bf16_query(f"{name}{tag} sdf", got[0], ref[0]),
+                 "x_c": check_close(f"{name}{tag} x_c", got[4], ref[4], 1e-5, 1e-5),
+                 "dist": check_close(f"{name}{tag} dist", got[3], ref[3], 0.0, 1e-5),
+                 "rgb": check_close(f"{name}{tag} rgb", got[1], ref[1], 0.0, RENDER_RGB)}
+            d_n = (got[2] - ref[2]).abs().flatten()
+            p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
+            ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
+            print(f"  {name}{tag} normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max "
+                  f"{n_max:.3e} (tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{name}{tag}: normals disagree with the plain version")
+            e["normal"] = n_max
+            read[tag] = (e, got, ref, p99)
+        worst = max(max(e.values()) for e, *_ in read.values())
+        errs, got, ref, p99 = read[""]
+        errs["ragged"] = read[f" N={n - 61}"][0]
         ms = cuda_ms(torch, lambda: kern(*args))
-        record(name, max(errs.values()), ms, cuda_ms(torch, lambda: plain(*args), fill_ms=0.0),
-               f"B={B} N={n} ({PIXEL_PER_BATCH} rays x {n // PIXEL_PER_BATCH} samples)",
+        record(name, worst, ms, cuda_ms(torch, lambda: plain(*args), fill_ms=0.0),
+               f"B={B} N={n} ({PIXEL_PER_BATCH} rays x {n // PIXEL_PER_BATCH} samples; also "
+               f"N={n - 61})",
                bound(2.0 * fr.RENDER_MACS * n, f32_pp * n, 56.0 * n + bytes_once),
                errors=errs, mean_abs_err=float((got[0] - ref[0]).abs().mean()),
                normal_p99=p99, max_abs_sdf=float(ref[0].abs().max()),
-               tflop_s=fr.RENDER_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
+               tflop_s=fr.RENDER_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12,
+               split_ms=kernel_split(torch, name, lambda: kern(*args),
+                                     ("render_warp_kernel", "render_shade_kernel")))
 
 
 def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
@@ -1134,7 +1157,8 @@ FAMILIES = (
     ("fused_shade bwd rows", ("fused_shade_bwd_kernel",)),
     ("fused_shade wgrad", ("wgrad_kernel",)),
     ("fused_shade colsum", ("colsum_kernel",)),
-    ("fused_render", ("fused_render_kernel",)),
+    ("fused_render warp", ("render_warp_kernel",)),
+    ("fused_render shade", ("render_shade_kernel",)),
     ("fused_query warp", ("query_embed_kernel",)),
     ("fused_query trunk", ("query_trunk_kernel",)),
     ("knn", ("knn_", "min_vertex_dist")),
@@ -1391,7 +1415,7 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "shape")},
             **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
-                                 "normal_p99") if k in r},
+                                 "normal_p99", "split_ms") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -100,7 +100,7 @@ struct QueryArgs {
 // softplus(100 x) / 100 = max(x, 0) + log(1 + exp(-|100 x|)) / 100 with the
 // hardware's exp2 and log2 (ex2.approx, lg2.approx).  The log term is at most
 // 0.0069 and the approximations' absolute error on it about 1e-7, so the
-// result lies within 2e-9 of the exact form (trunk_common.cuh softplus100),
+// result lies within 2e-9 of the exact form (log1pf, expf, / 100.0f),
 // five orders under a bf16 step of the smallest activation; beyond
 // |x| = 0.166 the term (under 6e-10) is dropped.
 __device__ __forceinline__ float softplus100_fast(float x) {

@@ -1,51 +1,36 @@
 // Fused inference render query, hand-written for Hopper (sm_90a).
 //
 // Replaces two Pallas kernels of hold_tpu/ops/fused_render.py, one template
-// instance each:
+// instance each of the warp step:
 //   <HAND>   fused_hand_render   (fused_render.py:480)
 //   <!HAND>  fused_object_render (fused_render.py:514)
 //
-// Per world point, in one pass and with no gradient:
-//   -> canonical point x_c: the hand's KNN blend vs the POSED vertices and
-//      inverse skinning (knn_common.cuh), with the nearest-vertex distance
-//      sqrt(min(min d2, 4)) from the same sweep; the object's Rinv (x - t);
-//   -> J^-1: the hand's second KNN blend vs the CANONICAL vertices at x_c,
-//      inverse of sum_j w_j R_j; the object's Rinv;
-//   -> Fourier/BARF embedding, the 8x256 softplus100 trunk (trunk_common.cuh)
-//      keeping each layer's sigmoid(100 a) in bf16, the f32 SDF head;
-//   -> the 256-wide feature head on bf16(h7), plus its bias;
-//   -> a reverse pass through the scalar head only: da7 = head_w * s7, then
-//      da_{l-1} = (bf16(da_l) . W_l) * s_{l-1} down to the embedding, summing
-//      the skip layer's embedding rows; d emb -> dSDF/dx_c; the normal
-//      n_j = sum_i g_i J^-1[3i+j] over max(|n|, 1e-6);
-//   -> the 'pose'-mode colour MLP: [x_c, n, 0..] . C0a + bf16(feat) . C0f +
-//      the frame's layer-0 bias, relu, three 256x256 relu layers, 3 outputs
-//      plus bias, sigmoid in f32.
+// Per world point, in two kernels a call and with no gradient:
+//   render_warp_kernel<HAND>: -> canonical point x_c: the hand's KNN blend vs
+//      the POSED vertices and inverse skinning (knn_common.cuh), with the
+//      nearest-vertex distance sqrt(min(min d2, 4)) from the same sweep; the
+//      object's Rinv (x - t), rounded op by op; -> J^-1: the hand's second KNN
+//      blend vs the CANONICAL vertices at x_c, inverse of sum_j w_j R_j; the
+//      object's Rinv.  x_c and the distance go to the outputs, J^-1 to a
+//      buffer: 52 bytes a point, which stay in L2;
+//   render_shade_kernel: the training shade's forward at those points
+//      (shade_common.cuh, shade::run<false>), the normal over max(|n|, 1e-6):
+//      sdf, rgb and normal.
 // Outputs sdf, rgb, normal, nearest distance, x_c: 44 bytes a point.
 //
-// Bound: 1.30 M multiply-adds a point on the tensor cores (trunk forward
-// 483,584 in the packed layout, reverse pass 483,328, feature head 65,536,
-// colour MLP 268,288), i.e. 2.6 MFLOP; the hand adds four sweeps over its
-// 778 vertices.  Input and output bytes (12 in, 44 out a point) are
-// negligible beside it.
+// Bound: 1.25 M multiply-adds a point on the tensor cores (RENDER_MACS:
+// trunk and head, the reverse pass, the feature head, the colour MLP), i.e.
+// 2.5 MFLOP; the hand adds four sweeps over its 778 vertices.  Input and
+// output bytes (12 in, 44 out a point) are negligible beside it; the shade's
+// sigmoid scratch is not (shade_common.cuh).
 //
-// Design: one CTA of 256 threads per tile of 128 points, as the fused query
-// (fused_query.cu): threads 0..127 warp, invert and embed one point each;
-// each of the 8 warps then owns 16 rows through every product, with its
-// activations in one 16 x 256 bf16 shared buffer overwritten in place.  What
-// the reverse pass needs from the forward, the eight sigmoid tiles, is 4 KB a
-// point: 512 KB for a 128-point CTA, more than a CTA may hold.  A product's
-// f32 output fragment has the layout of the next product's A fragment, so
-// every value a lane stores for later (sigmoids, feature head, the
-// embedding-gradient partial) is read back by the same lane.  Those go to a
-// lane-private global scratch (600 words a lane, coalesced per warp, no
-// barrier), sized for the resident CTAs only: the grid is at most two CTAs
-// per SM and loops over the tiles, so the scratch (~160 MB on an H100) is
-// reused and partly held in L2.  Its traffic is 4.8 KB a point each way
-// beside 2.6 MFLOP.  Weights are read as MMA B fragments from device memory
-// (L1/L2 resident), the reverse pass through transposed copies of the trunk
-// (pack_trunk_transposed).  Not done here (a later step): wgmma, TMA, staged
-// weight tiles, warp specialisation.
+// Design: the two halves want opposite shapes, as in the fused query.  The
+// warp step is latency-bound scalar work that wants many resident warps: one
+// CTA of 128 threads per 128 points of a frame, one point a thread, the
+// frame's posed and canonical vertices staged in shared memory (24 KB for
+// MANO's 778, so several CTAs share an SM).  The shade wants the whole SM:
+// a persistent grid of one CTA an SM, two consumer warpgroups on wgmma, the
+// weights staged once a tile by cp.async.bulk (shade_common.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,151 +43,167 @@
 
 namespace {
 
-// One point: canonical point, J^-1, nearest distance, embedding row.
-template <bool HAND>
-__device__ __forceinline__ void point_stage(const RenderArgs& q, int b, int p,
-                                            const float4* s_vp, const float4* s_vc,
-                                            const float* s_tf, float* sp, __nv_bfloat16* erow) {
-    float xc[3] = {0.0f, 0.0f, 0.0f};
-    float jinv[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
-    float dist = 0.0f;
-    if (p < q.N) {
-        const float* x = q.pts + 3 * ((size_t)b * q.N + p);
-        const float px = x[0], py = x[1], pz = x[2];
-        if constexpr (HAND) {
-            const float* skin = q.skin + (size_t)b * q.V * q.J;
-            float wb[JMAX], inv[9];
-            const float dmin = knn_blend(s_vp, q.V, skin, q.J, q.K, px, py, pz, wb);
-            inverse_skin(wb, s_tf, q.J, px, py, pz, inv, xc);
-            dist = sqrtf(fminf(dmin, CLAMP));
-            knn_blend(s_vc, q.V, skin, q.J, q.K, xc[0], xc[1], xc[2], wb);
-            blend_jacobian_inverse(wb, s_tf, q.J, jinv);
-        } else {  // Rinv (x - t), rounded op by op as the plain version
-            const float* tf = q.tf12 + 12 * b;
-            const float d0 = px - tf[9], d1 = py - tf[10], d2 = pz - tf[11];
-#pragma unroll
-            for (int i = 0; i < 3; ++i)
-                xc[i] = __fadd_rn(__fadd_rn(__fmul_rn(tf[3 * i], d0), __fmul_rn(tf[3 * i + 1], d1)),
-                                  __fmul_rn(tf[3 * i + 2], d2));
-#pragma unroll
-            for (int c = 0; c < 9; ++c) jinv[c] = tf[c];
-        }
-    }
-#pragma unroll
-    for (int d = 0; d < 3; ++d) sp[d] = xc[d];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) sp[3 + c] = jinv[c];
-    sp[12] = dist;
-    write_embedding(xc, q.window, q.multires, erow);
-}
+constexpr int WARP_THREADS = 128;  // points a CTA of the warp step
 
+struct WarpArgs {
+    const float* pts;      // (B, N, 3)
+    const float* verts;    // posed vertices (B, V, 3)       [HAND]
+    const float* verts_c;  // canonical vertices (B, V, 3)   [HAND]
+    const float* skin;     // skinning weights (B, V, J)     [HAND]
+    const float* tfs;      // bone transforms (B, J, 4, 4)   [HAND]
+    const float* tf12;     // [Rinv row-major | t] (B, 12)   [!HAND]
+    float* xc;             // (B, N, 3)
+    float* jinv;           // (B, N, 9) row-major
+    float* dist;           // (B, N)
+    int N, V, J, K;
+};
+
+// One point a thread: canonical point, J^-1, nearest distance.
 template <bool HAND>
-__global__ void __launch_bounds__(THREADS, 2) fused_render_kernel(const RenderArgs q) {
-    extern __shared__ __align__(16) unsigned char smem[];
+__global__ void __launch_bounds__(WARP_THREADS) render_warp_kernel(const WarpArgs q) {
+    extern __shared__ __align__(16) unsigned char warp_smem[];
     __shared__ float s_tf[JMAX * 16];
-    __nv_bfloat16* emb = reinterpret_cast<__nv_bfloat16*>(smem);  // TILE x LDE
-    __nv_bfloat16* act = emb + TILE * LDE;                          // TILE x LDA
-    float* s_pt = reinterpret_cast<float*>(act + TILE * LDA);       // TILE x PT
-    // the hand's posed and canonical vertices live in the activation buffer
-    // until the trunk starts
-    float4* s_vp = reinterpret_cast<float4*>(act);
+    float4* s_vp = reinterpret_cast<float4*>(warp_smem);
     float4* s_vc = s_vp + (HAND ? q.V : 0);
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    uint32_t* scr = q.scratch + ((size_t)blockIdx.x * WARPS + warp) * SCR_WORDS * 32 + lane;
-    const int tiles_per_frame = (q.N + TILE - 1) / TILE;
-    const int ntiles = q.B * tiles_per_frame;
-    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int b = tile / tiles_per_frame;
-        const int tile0 = (tile - b * tiles_per_frame) * TILE;
-        __syncthreads();  // the previous tile is done with shared memory
-        if constexpr (HAND) {
-            stage_frame(q.verts + (size_t)b * q.V * 3, q.tfs + (size_t)b * q.J * 16, q.V, q.J,
-                        s_vp, s_tf);
-            stage_frame(q.verts_c + (size_t)b * q.V * 3, nullptr, q.V, 0, s_vc, s_tf);
-        }
-        if (tid < TILE)
-            point_stage<HAND>(q, b, tile0 + tid, s_vp, s_vc, s_tf, s_pt + tid * PT,
-                              emb + tid * LDE);
-        __syncthreads();  // embedding rows written; the staged vertices are dead
-        shade_rows<false>(q, b, tile0 + warp * 16, emb + warp * 16 * LDE, act + warp * 16 * LDA,
-                   s_pt + warp * 16 * PT, scr, lane);
+    const int b = blockIdx.y;
+    const int p = blockIdx.x * WARP_THREADS + threadIdx.x;
+    if constexpr (HAND) {
+        stage_frame(q.verts + (size_t)b * q.V * 3, q.tfs + (size_t)b * q.J * 16, q.V, q.J, s_vp,
+                    s_tf);
+        stage_frame(q.verts_c + (size_t)b * q.V * 3, nullptr, q.V, 0, s_vc, s_tf);
     }
+    if (p >= q.N) return;
+    const size_t i = (size_t)b * q.N + p;
+    const float px = q.pts[3 * i], py = q.pts[3 * i + 1], pz = q.pts[3 * i + 2];
+    float xc[3], jinv[9];
+    float dist = 0.0f;
+    if constexpr (HAND) {
+        const float* skin = q.skin + (size_t)b * q.V * q.J;
+        float x[3] = {px, py, pz};
+        // the blend vs the posed vertices, then vs the canonical ones at x_c:
+        // one loop, so that the sweeps' code and registers exist once
+#pragma unroll 1
+        for (int pass = 0; pass < 2; ++pass) {
+            float wb[JMAX];
+            const float dmin = knn_blend(pass ? s_vc : s_vp, q.V, skin, q.J, q.K, x[0], x[1],
+                                         x[2], wb);
+            if (pass == 0) {
+                float inv[9];
+                inverse_skin(wb, s_tf, q.J, x[0], x[1], x[2], inv, xc);
+                dist = sqrtf(fminf(dmin, CLAMP));
+#pragma unroll
+                for (int d = 0; d < 3; ++d) x[d] = xc[d];
+            } else {
+                blend_jacobian_inverse(wb, s_tf, q.J, jinv);
+            }
+        }
+    } else {  // Rinv (x - t), rounded op by op as the plain version
+        const float* tf = q.tf12 + 12 * b;
+        const float d0 = px - tf[9], d1 = py - tf[10], d2 = pz - tf[11];
+#pragma unroll
+        for (int r = 0; r < 3; ++r)
+            xc[r] = __fadd_rn(__fadd_rn(__fmul_rn(tf[3 * r], d0), __fmul_rn(tf[3 * r + 1], d1)),
+                              __fmul_rn(tf[3 * r + 2], d2));
+#pragma unroll
+        for (int c = 0; c < 9; ++c) jinv[c] = tf[c];
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) q.xc[3 * i + d] = xc[d];
+#pragma unroll
+    for (int c = 0; c < 9; ++c) q.jinv[9 * i + c] = jinv[c];
+    q.dist[i] = dist;
 }
 
+__global__ void __launch_bounds__(shade::THREADS, 1) render_shade_kernel(const shade::Args q) {
+    shade::run<false>(q);
+}
+
+// the warp step, then the shade on its outputs
 template <bool HAND>
-cudaError_t launch(const RenderArgs& q, int ctas, void* stream) {
-    if (q.B == 0 || q.N == 0) return cudaSuccess;
-    const size_t smem = (size_t)TILE * LDE * sizeof(__nv_bfloat16) +
-                        (size_t)TILE * LDA * sizeof(__nv_bfloat16) + (size_t)TILE * PT * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(fused_render_kernel<HAND>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const WarpArgs& w, shade::Args s, int B, int ctas, cudaStream_t stream) {
+    if (B == 0 || w.N == 0) return cudaSuccess;
+    const int vert_bytes = HAND ? 2 * w.V * (int)sizeof(float4) : 0;
+    cudaError_t err = cudaFuncSetAttribute(render_warp_kernel<HAND>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, vert_bytes);
     if (err != cudaSuccess) return err;
-    fused_render_kernel<HAND><<<ctas, THREADS, smem, (cudaStream_t)stream>>>(q);
-    return cudaGetLastError();
+    const dim3 grid((w.N + WARP_THREADS - 1) / WARP_THREADS, B);
+    render_warp_kernel<HAND><<<grid, WARP_THREADS, vert_bytes, stream>>>(w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    s.xc = w.xc;
+    s.jinv = w.jinv;
+    return shade::launch(render_shade_kernel, s, ctas, stream);
 }
 
-RenderArgs render_args(const void* pts, const void* window, const void* wts, const void* fpack,
-                       const void* wts_t, const void* cw, const void* cb, const void* fb0,
-                       void* scratch, void* sdf, void* rgb, void* nrm, void* dist, void* xc, int B,
+shade::Args shade_args(const void* window, const void* slabs, const void* fpack, const void* cb,
+                       const void* fb0, void* scratch, void* sdf, void* rgb, void* nrm, int B,
                        int N, int multires) {
-    RenderArgs q = {};
-    q.pts = (const float*)pts;
+    shade::Args q = {};
     q.window = (const float*)window;
-    q.wts = (const __nv_bfloat16*)wts;
-    q.fpack = (const float*)fpack;
-    q.wts_t = (const __nv_bfloat16*)wts_t;
-    q.cw = (const __nv_bfloat16*)cw;
-    q.cb = (const float*)cb;
+    q.slabs = (const __nv_bfloat16*)slabs;
+    q.F = (const float*)fpack;
+    q.CB = (const float*)cb;
     q.fb0 = (const float*)fb0;
-    q.scratch = (uint32_t*)scratch;
+    q.scratch = (uint4*)scratch;
     q.sdf = (float*)sdf;
     q.rgb = (float*)rgb;
     q.nrm = (float*)nrm;
-    q.dist = (float*)dist;
-    q.xc = (float*)xc;
-    q.B = B;
+    q.total = B * N;
     q.N = N;
     q.multires = multires;
     return q;
+}
+
+WarpArgs warp_args(const void* pts, void* jinv, void* dist, void* xc, int N) {
+    WarpArgs w = {};
+    w.pts = (const float*)pts;
+    w.jinv = (float*)jinv;
+    w.dist = (float*)dist;
+    w.xc = (float*)xc;
+    w.N = N;
+    return w;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Words of lane scratch one CTA needs (the wrapper allocates ctas times it).
-int hold_fused_render_scratch_words() { return WARPS * SCR_WORDS * 32; }
+// Words of scratch one shade CTA needs (the wrapper allocates ctas times it).
+int hold_fused_render_scratch_words() { return shade::SCRATCH_WORDS; }
 
 // pts (B, N, 3), verts and verts_c (B, V, 3), skin (B, V, J), tfs (B, J, 4, 4),
 // fb0 (B, 256) -> sdf (B, N), rgb (B, N, 3), nrm (B, N, 3), dist (B, N), xc (B, N, 3).
+// slabs: the forward's weight stream; jinv: a (B, N, 9) f32 buffer.
 int hold_fused_hand_render(const void* pts, const void* verts, const void* verts_c,
-                           const void* skin, const void* tfs, const void* window, const void* wts,
-                           const void* fpack, const void* wts_t, const void* cw, const void* cb,
-                           const void* fb0, void* scratch, void* sdf, void* rgb, void* nrm,
-                           void* dist, void* xc, int B, int N, int V, int J, int K, int multires,
-                           int ctas, void* stream) {
-    RenderArgs q = render_args(pts, window, wts, fpack, wts_t, cw, cb, fb0, scratch, sdf, rgb, nrm,
-                               dist, xc, B, N, multires);
-    q.verts = (const float*)verts;
-    q.verts_c = (const float*)verts_c;
-    q.skin = (const float*)skin;
-    q.tfs = (const float*)tfs;
-    q.V = V;
-    q.J = J;
-    q.K = K;
-    return launch<true>(q, ctas, stream);
+                           const void* skin, const void* tfs, const void* window,
+                           const void* slabs, const void* fpack, const void* cb, const void* fb0,
+                           void* jinv, void* scratch, void* sdf, void* rgb, void* nrm, void* dist,
+                           void* xc, int B, int N, int V, int J, int K, int multires, int ctas,
+                           void* stream) {
+    WarpArgs w = warp_args(pts, jinv, dist, xc, N);
+    w.verts = (const float*)verts;
+    w.verts_c = (const float*)verts_c;
+    w.skin = (const float*)skin;
+    w.tfs = (const float*)tfs;
+    w.V = V;
+    w.J = J;
+    w.K = K;
+    return launch<true>(w, shade_args(window, slabs, fpack, cb, fb0, scratch, sdf, rgb, nrm, B, N,
+                                      multires),
+                        B, ctas, (cudaStream_t)stream);
 }
 
 // pts (B, N, 3), tf12 (B, 12), fb0 (B, 256) -> as the hand; dist is 0.
 int hold_fused_object_render(const void* pts, const void* tf12, const void* window,
-                             const void* wts, const void* fpack, const void* wts_t, const void* cw,
-                             const void* cb, const void* fb0, void* scratch, void* sdf, void* rgb,
-                             void* nrm, void* dist, void* xc, int B, int N, int multires, int ctas,
+                             const void* slabs, const void* fpack, const void* cb, const void* fb0,
+                             void* jinv, void* scratch, void* sdf, void* rgb, void* nrm,
+                             void* dist, void* xc, int B, int N, int multires, int ctas,
                              void* stream) {
-    RenderArgs q = render_args(pts, window, wts, fpack, wts_t, cw, cb, fb0, scratch, sdf, rgb, nrm,
-                               dist, xc, B, N, multires);
-    q.tf12 = (const float*)tf12;
-    return launch<false>(q, ctas, stream);
+    WarpArgs w = warp_args(pts, jinv, dist, xc, N);
+    w.tf12 = (const float*)tf12;
+    return launch<false>(w, shade_args(window, slabs, fpack, cb, fb0, scratch, sdf, rgb, nrm, B,
+                                       N, multires),
+                         B, ctas, (cudaStream_t)stream);
 }
 
 }  // extern "C"

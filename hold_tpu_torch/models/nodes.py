@@ -55,6 +55,7 @@ from ..ops.fused_render import (
     fused_object_render,
     pack_color_weights,
     pack_trunk_transposed,
+    tile_shade_fwd,
 )
 from ..ops.fused_shade import fused_shade_train
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
@@ -311,12 +312,16 @@ def _world_points(ray_dirs, cam_loc, z_vals, B):
 def node_render_packs(nparams, plans: NodePlans, device) -> tuple:
     """The fused render's weights for one node, (window, trunk pack,
     transposed pack, colour pack): built once per set of params and shared by
-    every chunk.  No step when rendering: the BARF window is open."""
+    every chunk.  On the card the colour pack also carries the shade kernel's
+    weight stream (``"stream"``).  No step when rendering: the BARF window is
+    open."""
     imp = resolve_weight_norm(nparams["implicit"])
     fwd = pack_trunk_weights(imp, plans.implicit)
-    return (embed_window(plans.implicit, None, plans.barf_cfg, device), fwd,
-            pack_trunk_transposed(imp, plans.implicit, fwd),
-            pack_color_weights(resolve_weight_norm(nparams["rendering"]), imp))
+    tpack = pack_trunk_transposed(imp, plans.implicit, fwd)
+    cpack = pack_color_weights(resolve_weight_norm(nparams["rendering"]), imp)
+    if fwd["bf16"].is_cuda:
+        cpack["stream"] = tile_shade_fwd(fwd, tpack, cpack)
+    return embed_window(plans.implicit, None, plans.barf_cfg, device), fwd, tpack, cpack
 
 
 @torch.no_grad()

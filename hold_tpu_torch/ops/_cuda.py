@@ -42,12 +42,12 @@ _SIGNATURES = {
     "hold_fused_hand_sdf": [_P] * 9 + [_I] * 6 + [_P],
     "hold_fused_object_sdf": [_P] * 7 + [_I] * 3 + [_P],
     "hold_knn_blend": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    "hold_fused_hand_render": [_P] * 18 + [_I] * 7 + [_P],
-    "hold_fused_object_render": [_P] * 15 + [_I] * 4 + [_P],
+    "hold_fused_hand_render": [_P] * 17 + [_I] * 7 + [_P],
+    "hold_fused_object_render": [_P] * 14 + [_I] * 4 + [_P],
     "hold_fused_render_scratch_words": [],
-    "hold_fused_shade_fwd": [_P] * 13 + [_I] * 4 + [_P],
+    "hold_fused_shade_fwd": [_P] * 11 + [_I] * 4 + [_P],
     "hold_fused_shade_bwd": [_P] * 20 + [_I] * 7 + [_P],
-    "hold_fused_shade_scratch_words": [],
+    "hold_fused_shade_fwd_slabs": [],
     "hold_fused_shade_ws_cols": [_I],
     "hold_fused_shade_bwd_slabs": [],
 }

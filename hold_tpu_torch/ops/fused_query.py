@@ -293,11 +293,16 @@ def _require_cpu(t: torch.Tensor) -> None:
         raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
-def _check_trunk(window, pack) -> int:
+def _check_pack(window, pack) -> int:
     multires = _multires(window)
     _cuda.check(window, "window", (window.shape[0],))
     _cuda.check(pack["bf16"], "pack['bf16']", (W_TOTAL,), torch.bfloat16)
     _cuda.check(pack["f32"], "pack['f32']", (F_TOTAL,))
+    return multires
+
+
+def _check_trunk(window, pack) -> int:
+    multires = _check_pack(window, pack)
     _cuda.check(_kernel_weights(pack), "pack['tiled']", (N_SLABS * SLAB,), torch.bfloat16)
     return multires
 

@@ -1,12 +1,14 @@
 """Fused inference render query (counterpart of hold_tpu/ops/fused_render.py).
 
-The render path shades each node's samples with no gradient, so one CUDA
-kernel per node (``csrc/fused_render.cu``) does the whole per-point
-pipeline: the warp to canonical space (the hand's KNN blend and inverse
-skinning, with the nearest-vertex distance; the object's rigid inverse), the
-inverse skinning Jacobian, the embedding, the 8x256 softplus100 trunk with
-its SDF and feature heads, a reverse pass through the scalar head for
-dSDF/dx_c and the normal, and the 'pose'-mode colour MLP.
+The render path shades each node's samples with no gradient, in two CUDA
+kernels a call (``csrc/fused_render.cu``): the warp step, one thread a point,
+to canonical space (the hand's KNN blend and inverse skinning, with the
+nearest-vertex distance; the object's rigid inverse) with the inverse
+skinning Jacobian; then the shade on the tensor cores (``wgmma``): the
+embedding, the 8x256 softplus100 trunk with its SDF and feature heads, a
+reverse pass through the scalar head for dSDF/dx_c and the normal, and the
+'pose'-mode colour MLP, its weights streamed in the shared-memory layout of
+``tile_shade_fwd``.
 
 The numbers are the TPU kernel's (``_shade_common``): bf16 operands and f32
 sums in every product, each layer's sigmoid(100 a) kept in bf16 for the
@@ -14,13 +16,14 @@ reverse pass, the reverse pass's gradient rounded to bf16 before each
 product, layer 7 and the SDF head in f32, the feature head's output rounded
 to bf16 for the colour net, the colour sigmoid in f32, and the normal divided
 by max(|n|, 1e-6).  ``render_shade_plain`` is that computation in plain
-PyTorch; ``hand_render_plain`` and ``object_render_plain`` add the warps.
+PyTorch; ``hand_render_warp_plain`` and ``object_render_warp_plain`` are the
+warps, and ``hand_render_plain`` and ``object_render_plain`` the two in turn.
 
 Two wrappers with the JAX names, arguments and outputs (sdf (B, N), rgb
 (B, N, 3), normal (B, N, 3), nearest distance (B, N), x_c (B, N, 3)); the
 embedding plan is its window alone, as in ``ops/fused_query.py``.  Given CPU
 tensors a wrapper runs the plain version.  Given CUDA tensors it launches
-the kernel or raises; it never falls back.  Each launch adds one to
+the kernels or raises; it never falls back.  Each call adds one to
 ``LAUNCHES[name]``.
 """
 
@@ -30,12 +33,15 @@ import torch
 
 from . import _cuda
 from .fused_query import (
+    _LAYOUT,
     EMB_PAD,
     H,
+    SLAB,
+    SLAB_K,
     TRUNK_FLOPS_PER_POINT,
     TRUNK_MACS,
     _check_hand,
-    _check_trunk,
+    _check_pack,
     _multires,
     _pad,
     _ptr,
@@ -49,10 +55,10 @@ from ..models.embedders import fourier_embed
 from ..models.mlp import softplus100
 
 C0A = 16  # colour layer-0 columns the kernel multiplies for [x_c | normal | 0 ...]
-TILE = 128  # points per CTA in csrc/fused_render.cu
-# hand vertices, posed and canonical (16 B each), that fit the kernel's
-# 128 x 264 bf16 activation buffer
-VMAX = TILE * (H + 8) * 2 // 32
+TILE = 128  # points a tile of the shade kernel (csrc/cta_gemm.cuh TILE_M)
+# hand vertices, posed and canonical (16 B each), that fit the warp kernel's
+# shared memory (227 KB) beside its bone transforms (1 KB)
+VMAX = (232_448 - 1024) // 32
 
 # the transposed trunk and the feature head, in csrc/fused_render.cu's order:
 # (name, rows, cols); W*T are (in, out), feat_w is (out, in)
@@ -74,6 +80,29 @@ RENDER_FLOPS_PER_POINT = TRUNK_FLOPS_PER_POINT + 2.0 * (
 # feature head, and the colour MLP (6 + 256 inputs, three 256x256 layers, 3
 # outputs)
 RENDER_MACS = TRUNK_MACS + 7 * H * H + H * H + (6 + H) * H + 3 * H * H + 3 * H
+
+# The forward shade's weight stream (csrc/shade_common.cuh): every product's
+# weights as the 32 KB stages its shared-memory ring takes, in the order a CTA
+# consumes them.  A name alone is a (256, K) matrix cut along k into slabs of
+# 64 columns, one a stage (K = 48 or 16: one slab, zero-padded); a name with N
+# is an (N, 256) matrix whose four k-slabs share one stage.  The training
+# shade's backward stream (ops/fused_shade.py) begins with these stages.
+_TRUNK_UP = ("W0", "W1", "W2", "W3", "W4h", "W4e", "W5", "W6", "W7")
+_TRUNK_DOWN = ("W7T", "W6T", "W5T", ("W4eT", 48), "W4hT", "W3T", "W2T", "W1T", ("W0T", 48))
+FWD_STREAM = (
+    *_TRUNK_UP, "feat_w",                                   # trunk, feature head
+    *_TRUNK_DOWN,                                           # the reverse pass
+    "C0a", "C0f", "C1", "C2", "C3", ("C4", 8),              # colour MLP
+)
+
+
+def _stages(entry) -> int:
+    """Stages an entry of a weight stream takes: one for a narrow matrix or
+    one of at most 64 columns, else a stage a slab."""
+    return 1 if not isinstance(entry, str) or entry in ("W0", "W4e", "C0a", "C4T") else H // SLAB_K
+
+
+N_FWD_SLABS = sum(map(_stages, FWD_STREAM))
 
 LAUNCHES = {"fused_hand_render": 0, "fused_object_render": 0}
 
@@ -165,6 +194,48 @@ def frame_bias0(resolved: dict, pose_embed: torch.Tensor,
     return fb.float().contiguous()
 
 
+def _swizzled_slabs(m: torch.Tensor) -> torch.Tensor:
+    """(N, K) -> (K / 64 slabs, N * 64): each slab's N rows of 64 values (128
+    bytes) with the row's 16-byte groups XOR-ed with the row number mod 8
+    (``ops/fused_query.py`` ``slab_offset``); K zero-padded to a multiple of 64."""
+    N, K = m.shape
+    pad = -K % SLAB_K
+    if pad:
+        m = torch.nn.functional.pad(m, (0, pad))
+    groups = m.reshape(N, -1, 8, 8)  # row, slab, 16-byte group, value
+    rows = torch.arange(N, device=m.device)
+    src = torch.arange(8, device=m.device)[None, :] ^ (rows[:, None] % 8)
+    src = src[:, None, :, None].expand(N, groups.shape[1], 8, 8)
+    return torch.gather(groups, 2, src).permute(1, 0, 2, 3).reshape(-1, N * SLAB_K)
+
+
+def stream_matrices(pack: dict, tpack_t: dict, cpack: dict) -> dict:
+    """The three packs' matrices by name, as a weight stream names them."""
+    return {**{k: pack[k] for k, _, _ in _LAYOUT}, **{k: tpack_t[k] for k, _, _ in _T_LAYOUT},
+            **{k: cpack[k] for k, _, _ in _C_LAYOUT}}
+
+
+@torch.no_grad()
+def weight_stream(mats: dict, entries: tuple) -> torch.Tensor:
+    """The stages of ``entries`` (a weight stream), from the matrices by name:
+    a flat bf16 buffer of 32 KB stages.  Copies of the packs' entries, no
+    rounding; no gradient flows through it."""
+    images = {}
+    for entry in dict.fromkeys(entries):
+        name, narrow = (entry, 0) if isinstance(entry, str) else entry
+        slabs = _swizzled_slabs(mats[name][:narrow] if narrow else mats[name])
+        if narrow:  # the four k-slabs of narrow rows, one after the other, in one stage
+            slabs = slabs.reshape(1, -1)
+        images[entry] = torch.nn.functional.pad(slabs, (0, SLAB - slabs.shape[1])).reshape(-1)
+    return torch.cat([images[e] for e in entries])
+
+
+def tile_shade_fwd(pack: dict, tpack_t: dict, cpack: dict) -> torch.Tensor:
+    """The shade kernel's weight stream (``FWD_STREAM``, ``N_FWD_SLABS``
+    stages): the first stages of the training shade's backward stream."""
+    return weight_stream(stream_matrices(pack, tpack_t, cpack), FWD_STREAM)
+
+
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
@@ -246,25 +317,40 @@ def _shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0, eps: float):
 
 
 @torch.no_grad()
-def hand_render_plain(pts, verts_posed, verts_c, skin_weights, tfs, window, pack, tpack_t,
-                      cpack, fb0, K: int = 15):
-    """Plain version of the hand kernel: the KNN warp vs the posed vertices
-    (with the nearest distance), J^-1 vs the canonical vertices, the shade."""
+def hand_render_warp_plain(pts, verts_posed, verts_c, skin_weights, tfs, K: int = 15):
+    """Plain version of the hand's warp step: the KNN warp vs the posed
+    vertices, J^-1 vs the canonical vertices at x_c, the nearest distance ->
+    (x_c (B, N, 3), J^-1 (B, N, 9) row-major, distance (B, N))."""
     w, dmin = _blend_plain(pts, verts_posed, skin_weights, K)
     xc = skinning(pts, w, tfs, inverse=True)
     jinv = jacobian_inverse_plain(xc, verts_c, skin_weights, tfs, K)
+    return xc, jinv, torch.sqrt(torch.clamp(dmin, max=4.0))
+
+
+@torch.no_grad()
+def object_render_warp_plain(pts, tf_inv12):
+    """Plain version of the object's warp step: x_c = Rinv (x - t),
+    J^-1 = Rinv, a zero distance."""
+    B, N = pts.shape[:2]
+    xc = rigid_inverse_plain(pts, tf_inv12)
+    return xc, tf_inv12[:, None, :9].expand(B, N, 9), torch.zeros_like(xc[..., 0])
+
+
+@torch.no_grad()
+def hand_render_plain(pts, verts_posed, verts_c, skin_weights, tfs, window, pack, tpack_t,
+                      cpack, fb0, K: int = 15):
+    """Plain version of the hand's kernels: the warp step, then the shade."""
+    xc, jinv, dist = hand_render_warp_plain(pts, verts_posed, verts_c, skin_weights, tfs, K)
     sdf, rgb, nrm = render_shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0)
-    return sdf, rgb, nrm, torch.sqrt(torch.clamp(dmin, max=4.0)), xc
+    return sdf, rgb, nrm, dist, xc
 
 
 @torch.no_grad()
 def object_render_plain(pts, tf_inv12, window, pack, tpack_t, cpack, fb0):
-    """Plain version of the object kernel: x_c = Rinv (x - t), J^-1 = Rinv."""
-    B, N = pts.shape[:2]
-    xc = rigid_inverse_plain(pts, tf_inv12)
-    jinv = tf_inv12[:, None, :9].expand(B, N, 9)
+    """Plain version of the object's kernels: the warp step, then the shade."""
+    xc, jinv, dist = object_render_warp_plain(pts, tf_inv12)
     sdf, rgb, nrm = render_shade_plain(xc, jinv, window, pack, tpack_t, cpack, fb0)
-    return sdf, rgb, nrm, torch.zeros_like(sdf), xc
+    return sdf, rgb, nrm, dist, xc
 
 
 # --------------------------------------------------------------------------
@@ -272,7 +358,7 @@ def object_render_plain(pts, tf_inv12, window, pack, tpack_t, cpack, fb0):
 # --------------------------------------------------------------------------
 
 def _check_render(window, pack, tpack_t, cpack, fb0, B) -> int:
-    multires = _check_trunk(window, pack)
+    multires = _check_pack(window, pack)
     _cuda.check(tpack_t["bf16"], "tpack_t['bf16']", (T_TOTAL,), torch.bfloat16)
     _cuda.check(cpack["bf16"], "cpack['bf16']", (C_TOTAL,), torch.bfloat16)
     _cuda.check(cpack["f32"], "cpack['f32']", (CB_TOTAL,))
@@ -280,16 +366,46 @@ def _check_render(window, pack, tpack_t, cpack, fb0, B) -> int:
     return multires
 
 
-def _outputs_and_scratch(B: int, N: int, dev) -> tuple:
-    """The five outputs, the lane scratch and the grid: at most two CTAs an
-    SM (the kernel's occupancy), each looping over tiles of 128 points."""
+def check_stream(slabs: torch.Tensor) -> None:
+    """Raise unless ``slabs`` holds at least the forward's stages."""
+    if not slabs.is_cuda or slabs.dtype != torch.bfloat16 or not slabs.is_contiguous():
+        raise ValueError("the weight stream must be a contiguous bf16 CUDA tensor")
+    if slabs.numel() < _cuda.lib().hold_fused_shade_fwd_slabs() * SLAB:
+        raise RuntimeError("the weight stream is shorter than the shade kernel's")
+
+
+def shade_scratch(total: int, dev) -> tuple:
+    """The shade kernel's scratch and grid for ``total`` points: one CTA an
+    SM at most, each looping over tiles of 128 points."""
+    ctas = max(1, min(-(-total // TILE), torch.cuda.get_device_properties(dev).multi_processor_count))
+    words = _cuda.lib().hold_fused_render_scratch_words()
+    return torch.empty(ctas * words, dtype=torch.int32, device=dev), ctas
+
+
+def _shade_stream(pack, tpack_t, cpack) -> torch.Tensor:
+    """The forward weight stream the render packs carry (``cpack['stream']``,
+    made with them once a frame by ``models/nodes.py`` node_render_packs), or
+    one made here."""
+    slabs = cpack.get("stream")
+    if slabs is None:
+        slabs = tile_shade_fwd(pack, tpack_t, cpack)
+    check_stream(slabs)
+    return slabs
+
+
+def _launch_render(name: str, B: int, N: int, dev, ptrs_in: list, ints: tuple, pack, tpack_t,
+                   cpack, fb0, window) -> tuple:
+    """Both kernels of one render call: the outputs, J^-1's buffer, the
+    scratch."""
+    multires = _check_render(window, pack, tpack_t, cpack, fb0, B)
+    slabs = _shade_stream(pack, tpack_t, cpack)
     outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
                  for s in ((B, N), (B, N, 3), (B, N, 3), (B, N), (B, N, 3)))
-    tiles = B * -(-N // TILE)
-    ctas = max(1, min(tiles, 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
-    words = _cuda.lib().hold_fused_render_scratch_words()
-    scratch = torch.empty(ctas * words, dtype=torch.int32, device=dev)
-    return outs, scratch, ctas
+    jinv = torch.empty((B, N, 9), dtype=torch.float32, device=dev)
+    scratch, ctas = shade_scratch(B * N, dev)
+    _cuda.launch(name, *ptrs_in, *_ptr(window, slabs, pack["f32"], cpack["f32"], fb0, jinv,
+                                       scratch, *outs), B, N, *ints, multires, ctas)
+    return outs
 
 
 @torch.no_grad()
@@ -306,12 +422,9 @@ def fused_hand_render(pts, verts_posed, verts_c, skin_weights, tfs, window, pack
         if V > VMAX:
             raise ValueError(f"V={V} vertices exceed the fused render's {VMAX}")
         _cuda.check(verts_c, "verts_c", (B, V, 3))
-        multires = _check_render(window, pack, tpack_t, cpack, fb0, B)
-        outs, scratch, ctas = _outputs_and_scratch(B, N, pts.device)
-        _cuda.launch("hold_fused_hand_render",
-                     *_ptr(pts, verts_posed, verts_c, skin_weights, tfs, window, pack["bf16"],
-                           pack["f32"], tpack_t["bf16"], cpack["bf16"], cpack["f32"], fb0,
-                           scratch, *outs), B, N, V, J, K, multires, ctas)
+        outs = _launch_render("hold_fused_hand_render", B, N, pts.device,
+                              _ptr(pts, verts_posed, verts_c, skin_weights, tfs), (V, J, K),
+                              pack, tpack_t, cpack, fb0, window)
         LAUNCHES["fused_hand_render"] += 1
         return outs
     _require_cpu(pts)
@@ -327,12 +440,8 @@ def fused_object_render(pts, tf_inv12, window, pack, tpack_t, cpack, fb0):
     if pts.is_cuda:
         _cuda.check(pts, "pts", (B, N, 3))
         _cuda.check(tf_inv12, "tf_inv12", (B, 12))
-        multires = _check_render(window, pack, tpack_t, cpack, fb0, B)
-        outs, scratch, ctas = _outputs_and_scratch(B, N, pts.device)
-        _cuda.launch("hold_fused_object_render",
-                     *_ptr(pts, tf_inv12, window, pack["bf16"], pack["f32"], tpack_t["bf16"],
-                           cpack["bf16"], cpack["f32"], fb0, scratch, *outs), B, N, multires,
-                     ctas)
+        outs = _launch_render("hold_fused_object_render", B, N, pts.device, _ptr(pts, tf_inv12),
+                              (), pack, tpack_t, cpack, fb0, window)
         LAUNCHES["fused_object_render"] += 1
         return outs
     _require_cpu(pts)

@@ -20,11 +20,13 @@ order and with the bf16 roundings of the CUDA kernel: its plain version.
 normal (B, N, 3)) and is differentiable in x_c, J^-1, the frame bias and
 every pack buffer, not in the window.  Given CPU tensors it runs the two
 plain functions; given CUDA tensors it launches the kernels or raises, and
-never falls back.  The backward kernel takes every product's weights as one
-stream of shared-memory stage images (``tile_shade_bwd``), made from the packs
-at each call; the weights' gradients come back in the packs' layout.  Each
-launch adds one to ``LAUNCHES[name]``: the forward once a call, the backward
-once a chunk of ``CHUNK`` points.
+never falls back.  The kernels take every product's weights as one stream of
+shared-memory stage images (``tile_shade_bwd``), made from the packs once a
+call of the op: the forward reads its first ``N_FWD_SLABS`` stages (the
+render's stream, ``tile_shade_fwd``), the backward all of them; the weights'
+gradients come back in the packs' layout.  Each launch adds one to
+``LAUNCHES[name]``: the forward once a call, the backward once a chunk of
+``CHUNK`` points.
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ from .fused_query import (
     F_TOTAL,
     H,
     SLAB,
-    SLAB_K,
     W_TOTAL,
     _multires,
     _ptr,
@@ -47,14 +48,22 @@ from .fused_query import (
 from .fused_render import (
     _C_LAYOUT,
     _T_LAYOUT,
+    _TRUNK_DOWN,
+    _TRUNK_UP,
     C0A,
     C_TOTAL,
     CB_TOTAL,
+    FWD_STREAM,
     RENDER_MACS,
     T_TOTAL,
-    TILE,
     _check_render,
     _shade_plain,
+    _stages,
+    check_stream,
+    shade_scratch,
+    stream_matrices,
+    tile_shade_fwd,
+    weight_stream,
 )
 from ..models.embedders import fourier_embed
 from ..models.mlp import softplus100
@@ -71,19 +80,14 @@ BWD_ROWS = 128  # points a CTA of the backward kernel (csrc/cta_gemm.cuh TILE_M)
 WGRAD_STEP = 64  # points a pipeline stage of the weight-gradient kernel
 
 # The backward kernel's weight stream: every product's weights as the 32 KB
-# stages its shared-memory ring takes, in the order a CTA consumes them.  A
-# name alone is a (256, K) matrix cut along k into slabs of 64 columns, one a
-# stage (K = 48 or 16: one slab, zero-padded); a name with N is an (N, 256)
-# matrix whose four k-slabs share one stage.  From the trunk pack (W*), the
-# transposed pack (W*T, feat_w) and the colour pack (C*), whose transposes are
-# made here.
-_TRUNK_UP = ("W0", "W1", "W2", "W3", "W4h", "W4e", "W5", "W6", "W7")
-_TRUNK_DOWN = ("W7T", "W6T", "W5T", ("W4eT", 48), "W4hT", "W3T", "W2T", "W1T", ("W0T", 48))
+# stages its shared-memory ring takes, in the order a CTA consumes them
+# (``ops/fused_render.py`` says how an entry is laid out).  It begins with the
+# forward's stream (``FWD_STREAM``: trunk, feature head, reverse pass, colour
+# MLP), which the recompute consumes in the same order; the colour pack's
+# transposes are made here.
 BWD_STREAM = (
-    *_TRUNK_UP, "feat_w",                                   # 1: trunk forward, feature head
-    *_TRUNK_DOWN,                                           # 1: the reverse pass
-    "C0a", "C0f", "C1", "C2", "C3", ("C4", 8),              # 1: colour MLP
-    "C4T", "C3T", "C2T", "C1T", ("C0aT", 16), "C0fT",       # 2: its backward
+    *FWD_STREAM,                                            # 1: the recompute
+    "C4T", "C3T", "C2T", "C1T", ("C0aT", 16), "C0fT",       # 2: colour MLP backward
     *_TRUNK_UP,                                             # 5: up the reverse chain
     "feat_wT", *_TRUNK_DOWN,                                # 7: down the trunk
 )
@@ -114,47 +118,19 @@ def _unpack(tw_b, tw_f, bw_b, cw_b, cw_f) -> tuple:
     return tw, bw, cw
 
 
-def _swizzled_slabs(m: torch.Tensor) -> torch.Tensor:
-    """(N, K) -> (K / 64 slabs, N * 64): each slab's N rows of 64 values (128
-    bytes) with the row's 16-byte groups XOR-ed with the row number mod 8
-    (``ops/fused_query.py`` ``slab_offset``); K zero-padded to a multiple of 64."""
-    N, K = m.shape
-    pad = -K % SLAB_K
-    if pad:
-        m = torch.nn.functional.pad(m, (0, pad))
-    groups = m.reshape(N, -1, 8, 8)  # row, slab, 16-byte group, value
-    rows = torch.arange(N, device=m.device)
-    src = torch.arange(8, device=m.device)[None, :] ^ (rows[:, None] % 8)
-    src = src[:, None, :, None].expand(N, groups.shape[1], 8, 8)
-    return torch.gather(groups, 2, src).permute(1, 0, 2, 3).reshape(-1, N * SLAB_K)
-
-
 @torch.no_grad()
 def tile_shade_bwd(tw: dict, bw: dict, cw: dict) -> torch.Tensor:
     """The backward kernel's weight stream (``BWD_STREAM``): a flat bf16
-    buffer of 32 KB stages.  Copies of the packs' entries, no rounding; no
+    buffer of 32 KB stages, whose first ``N_FWD_SLABS`` are
+    ``tile_shade_fwd``'s.  Copies of the packs' entries, no rounding; no
     gradient flows through it (the kernel returns the weights' gradients in
     the packs' layout)."""
     c4 = torch.zeros((16, H), dtype=torch.bfloat16, device=cw["bf16"].device)
     c4[:8] = cw["C4"]
-    mats = {**{k: tw[k] for k, _, _ in _LAYOUT}, **{k: bw[k] for k, _, _ in _T_LAYOUT},
-            **{k: cw[k] for k, _, _ in _C_LAYOUT}, "feat_wT": bw["feat_w"].t(),
+    mats = {**stream_matrices(tw, bw, cw), "feat_wT": bw["feat_w"].t(),
             "C0aT": cw["C0a"].t(), "C0fT": cw["C0f"].t(), "C1T": cw["C1"].t(),
             "C2T": cw["C2"].t(), "C3T": cw["C3"].t(), "C4T": c4.t()}
-    images = {}
-    for entry in dict.fromkeys(BWD_STREAM):
-        name, narrow = (entry, 0) if isinstance(entry, str) else entry
-        slabs = _swizzled_slabs(mats[name][:narrow] if narrow else mats[name])
-        if narrow:  # the four k-slabs of narrow rows, one after the other, in one stage
-            slabs = slabs.reshape(1, -1)
-        images[entry] = torch.nn.functional.pad(slabs, (0, SLAB - slabs.shape[1])).reshape(-1)
-    return torch.cat([images[e] for e in BWD_STREAM])
-
-
-def _stages(entry) -> int:
-    """Stages an entry of ``BWD_STREAM`` takes: one for a narrow matrix or one
-    of at most 64 columns, else a stage a slab."""
-    return 1 if not isinstance(entry, str) or entry in ("W0", "W4e", "C0a", "C4T") else H // SLAB_K
+    return weight_stream(mats, BWD_STREAM)
 
 
 N_BWD_SLABS = sum(map(_stages, BWD_STREAM))
@@ -344,20 +320,22 @@ def _check_inputs(xc, jinv9, fb0, window, tw, bw, cw) -> int:
     return _check_render(window, tw, bw, cw, fb0, B)
 
 
-def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw) -> tuple:
-    """The forward kernel: (sdf, rgb, normal)."""
+def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, slabs=None) -> tuple:
+    """The forward kernel: (sdf, rgb, normal).  ``slabs`` is a weight stream
+    that begins with the forward's (``tile_shade_bwd``'s or
+    ``tile_shade_fwd``'s), made here when not given."""
     B, N = xc.shape[:2]
     multires = _check_inputs(xc, jinv9, fb0, window, tw, bw, cw)
     dev = xc.device
+    if slabs is None:
+        slabs = tile_shade_fwd(tw, bw, cw)
+    check_stream(slabs)
     outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
                  for s in ((B, N), (B, N, 3), (B, N, 3)))
-    tiles = B * -(-N // TILE)
-    ctas = max(1, min(tiles, 2 * torch.cuda.get_device_properties(dev).multi_processor_count))
-    scratch = torch.empty(ctas * _cuda.lib().hold_fused_shade_scratch_words(), dtype=torch.int32,
-                          device=dev)
+    scratch, ctas = shade_scratch(B * N, dev)
     _cuda.launch("hold_fused_shade_fwd",
-                 *_ptr(xc, jinv9, window, tw["bf16"], tw["f32"], bw["bf16"], cw["bf16"], cw["f32"],
-                       fb0, scratch, *outs), B, N, multires, ctas)
+                 *_ptr(xc, jinv9, fb0, window, slabs, tw["f32"], cw["f32"], scratch, *outs),
+                 B, N, multires, ctas)
     LAUNCHES["fused_shade_train.fwd"] += 1
     return outs
 
@@ -374,9 +352,11 @@ def bwd_chunks(total: int) -> tuple:
     return cap, chunks
 
 
-def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm) -> dict:
+def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm,
+                         slabs=None) -> dict:
     """The backward kernels, chunk by chunk of the flattened (B, N) points:
-    the gradients as ``shade_train_bwd_plain`` returns them."""
+    the gradients as ``shade_train_bwd_plain`` returns them.  ``slabs`` is
+    ``tile_shade_bwd``'s stream, made here when not given."""
     B, N = xc.shape[:2]
     multires = _check_inputs(xc, jinv9, fb0, window, tw, bw, cw)
     _cuda.check(g_sdf, "g_sdf", (B, N))
@@ -384,7 +364,8 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
     _cuda.check(g_nrm, "g_nrm", (B, N, 3))
     dev = xc.device
     lib = _cuda.lib()
-    slabs = tile_shade_bwd(tw, bw, cw)
+    if slabs is None:
+        slabs = tile_shade_bwd(tw, bw, cw)
     if slabs.numel() != lib.hold_fused_shade_bwd_slabs() * SLAB:
         raise RuntimeError("the backward's weight stream differs from the kernel's")
     cap, chunks = bwd_chunks(B * N)
@@ -414,8 +395,12 @@ class _FusedShadeTrain(torch.autograd.Function):
     def forward(ctx, xc, jinv9, fb0, window, tw_b, tw_f, bw_b, cw_b, cw_f):
         ctx.save_for_backward(xc, jinv9, fb0, window, tw_b, tw_f, bw_b, cw_b, cw_f)
         tw, bw, cw = _unpack(tw_b, tw_f, bw_b, cw_b, cw_f)
+        ctx.slabs = None
         if xc.is_cuda:
-            return shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw)
+            # one weight stream a call: the forward reads its first stages,
+            # the backward all of them
+            ctx.slabs = tile_shade_bwd(tw, bw, cw)
+            return shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, ctx.slabs)
         _require_cpu(xc)
         return shade_train_plain(xc, jinv9, fb0, window, tw, bw, cw)
 
@@ -428,7 +413,7 @@ class _FusedShadeTrain(torch.autograd.Function):
                for g, s in ((g_sdf, (B, N)), (g_rgb, (B, N, 3)), (g_nrm, (B, N, 3)))]
         tw, bw, cw = _unpack(*bufs)
         if xc.is_cuda:
-            gr = shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, *cts)
+            gr = shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, *cts, ctx.slabs)
         else:
             _require_cpu(xc)
             gr = shade_train_bwd_plain(xc, jinv9, fb0, window, tw, bw, cw, *cts)

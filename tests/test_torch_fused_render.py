@@ -12,6 +12,9 @@ JAX Pallas kernels run in interpret mode.  Checked:
   (tests/test_fused_render.py): x_c and distance 1e-4, sdf max 2e-2 and mean
   4e-3, rgb 3e-2, normal p99 0.08; the plain versions keep the kernel's
   sums and roundings, so tighter bounds are held too (``TIGHT``);
+- the render's warp step against the Pallas warp and J^-1 kernels, and
+  the plain render as that warp followed by the shade;
+- the shade kernel's weight stream (``tile_shade_fwd``);
 - ``knn_blend_weights`` / ``knn_blend_weights_t`` against the Pallas
   blend kernels;
 - the node render forwards against the JAX nodes at ``training=False``
@@ -205,6 +208,93 @@ def test_plain_wrapper_matches_pallas_kernel(kind):
     assert d_sdf.max() <= TIGHT["sdf"] and d_sdf.mean() <= TIGHT["sdf_mean"]
     assert d_rgb.max() <= TIGHT["rgb"] and np.quantile(d_nrm, 0.99) <= TIGHT["nrm_p99"]
     assert np.abs(rs).max() > 0.05 and rr.std() > 1e-3  # not a degenerate field
+
+
+def test_forward_weight_stream_layout():
+    """``tile_shade_fwd``: 82 stages of 32 KB in the order the shade kernel
+    consumes them; its first 30 are the fused query's layout of the trunk; a
+    spot element of a full, a 16-column and a narrow matrix sits where
+    ``csrc/cta_gemm.cuh`` documents; built from packs under grad mode, it
+    carries no gradient."""
+    iplan, _, _, (timp, trend) = _nets("object", 3)
+    tw = tfq.pack_trunk_weights(timp, iplan)
+    bw = tfr.pack_trunk_transposed(timp, iplan)
+    cw = tfr.pack_color_weights(trend, timp)
+    assert tw["bf16"].requires_grad
+    stream = tfr.tile_shade_fwd(tw, bw, cw)
+    assert stream.dtype == torch.bfloat16 and not stream.requires_grad
+    assert stream.shape == (tfr.N_FWD_SLABS * tfq.SLAB,) and tfr.N_FWD_SLABS == 82
+    raw = stream.view(torch.int16)
+    assert torch.equal(raw[:30 * tfq.SLAB], tfq.tile_for_kernel(tw).detach().view(torch.int16))
+
+    def first_stage(entry):
+        return sum(map(tfr._stages, tfr.FWD_STREAM[:tfr.FWD_STREAM.index(entry)]))
+
+    def bits(t):
+        return t.detach().contiguous().view(torch.int16)
+
+    def in_slab(n, k):  # rows of 64 values, 16-byte groups XOR-ed with the row mod 8
+        return n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+
+    n, k = 13, 250  # the feature head, right after the trunk
+    assert first_stage("feat_w") == 30
+    assert raw[(30 + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["feat_w"])[n, k]
+    n, k = 250, 3  # the reverse pass's W3T
+    assert raw[(first_stage("W3T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["W3T"])[n, k]
+    n, k = 31, 4  # the colour net's 16-column segment: one stage
+    st = first_stage("C0a") * tfq.SLAB
+    assert raw[st + in_slab(n, k)] == bits(cw["C0a"])[n, k]
+    n, k = 2, 199  # the colour head: its four k-slabs of 8 rows in the last stage
+    st = first_stage(("C4", 8)) * tfq.SLAB
+    assert first_stage(("C4", 8)) == tfr.N_FWD_SLABS - 1
+    assert raw[st + (k // 64) * 8 * 64 + in_slab(n, k)] == bits(cw["C4"])[n, k]
+    assert not raw[st + 4 * 8 * 64:].any()
+
+
+@pytest.mark.parametrize("kind", ["hand", "object"])
+def test_warp_step_matches_pallas_and_the_shade_follows(kind):
+    """The render's warp step (``*_render_warp_plain``, the plain version of
+    ``render_warp_kernel``) against the JAX package: the hand's against the
+    Pallas ``knn_inverse_warp`` and ``knn_jacobian_inverse`` in interpret
+    mode, the object's against Rinv (x - t) in float64.  Then the plain
+    render is that warp followed by ``render_shade_plain``, bit for bit."""
+    rng = np.random.RandomState(11)
+    B, N = 2, 300
+    if kind == "hand":
+        pts, verts_p, w = _blend_inputs(seed=12, B=B, P=N)
+        verts_c = (rng.randn(B, 778, 3) * 0.12).astype(np.float32)
+        tfs = _rigid_tfs(rng, B, 16, 0.3, 0.05)
+        ins = (pts, verts_p, verts_c, w, tfs)
+        xc, jinv, dist = tfr.hand_render_warp_plain(*map(torch.tensor, ins), K=15)
+        jx, jout = jknn.knn_inverse_warp(*map(jnp.asarray, (pts, verts_p, w, tfs)), K=15,
+                                         max_dist=0.05, interpret=True)
+        jj = jknn.knn_jacobian_inverse(jx, jnp.asarray(verts_c), jnp.asarray(w), jnp.asarray(tfs),
+                                       K=15, interpret=True)
+        np.testing.assert_allclose(xc.numpy(), np.asarray(jx), atol=MAX_XC)
+        np.testing.assert_allclose(jinv.numpy(), np.asarray(jj), rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal((dist > 0.05).numpy(), np.asarray(jout))
+        assert 0 < float((dist > 0.05).float().mean()) < 1
+    else:
+        pts = (rng.randn(B, N, 3) * 0.3).astype(np.float32)
+        tfs = _rigid_tfs(rng, B, 1, 0.8, 0.2)[:, 0]
+        rinv = np.linalg.inv(tfs[:, :3, :3].astype(np.float64))
+        tf12 = np.concatenate([rinv.reshape(B, 9), tfs[:, :3, 3]], -1).astype(np.float32)
+        ins = (pts, tf12)
+        xc, jinv, dist = tfr.object_render_warp_plain(*map(torch.tensor, ins))
+        ref = np.einsum("bij,bnj->bni", tf12[:, :9].reshape(B, 3, 3).astype(np.float64),
+                        pts.astype(np.float64) - tfs[:, None, :3, 3])
+        np.testing.assert_allclose(xc.numpy(), ref, atol=1e-6)
+        np.testing.assert_array_equal(jinv.numpy(), np.broadcast_to(tf12[:, None, :9], (B, N, 9)))
+        assert not dist.any()
+    iplan, _, _, (timp, trend) = _nets(kind, seed=2)
+    packs = (tfq.embed_window(iplan, None, (0, 1)), tfq.pack_trunk_weights(timp, iplan),
+             tfr.pack_trunk_transposed(timp, iplan), tfr.pack_color_weights(trend, timp))
+    fb0 = torch.tensor(rng.randn(B, 256).astype(np.float32) * 0.1)
+    whole = (tfr.hand_render_plain if kind == "hand" else tfr.object_render_plain)(
+        *map(torch.tensor, ins[:1]), *map(torch.tensor, ins[1:]), *packs, fb0)
+    shaded = tfr.render_shade_plain(xc, jinv, *packs, fb0)
+    for g, r in zip((*shaded, dist, xc), whole):
+        assert torch.equal(g, r)
 
 
 def _blend_inputs(seed=7, B=2, P=700, V=778, J=16):
@@ -416,11 +506,15 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [3000, 129])
 @pytest.mark.parametrize("kind", ["hand", "object"])
-def test_cuda_render_kernels_match_plain(cuda, kind):
+def test_cuda_render_kernels_match_plain(cuda, kind, n):
+    """Both kernels of a render call (the warp step, the shade) against the
+    plain version on the card, at N that are no multiple of the shade's
+    128-point tile."""
     iplan, _, _, (timp, trend) = _nets(kind, seed=4)
     rng = np.random.RandomState(9)
-    B, N = 2, 3000
+    B, N = 2, n
     packs = (tfq.embed_window(iplan, None, (0, 1)), tfq.pack_trunk_weights(timp, iplan),
              tfr.pack_trunk_transposed(timp, iplan), tfr.pack_color_weights(trend, timp))
     fb0 = torch.tensor(rng.randn(B, 256).astype(np.float32) * 0.1)

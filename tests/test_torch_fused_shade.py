@@ -19,6 +19,8 @@ kernel to.  Checked:
 - a padded N (131) equals its prefix; the MAC counts of the bound; the
   frame-bias gradient's rounding noise, which chip_smoke.py reads on the
   card too;
+- the kernels' weight streams: the backward's layout, and the forward's as
+  its first 82 stages, un-swizzled back to the packs;
 - the slice: one grad step of a full-width toy scene with the fused shade
   against the JAX package's under HOLD_FUSED_TRAIN=interpret, at JAX's own
   fused-vs-chunked bounds; and that ``--no_fused_train`` and the render's
@@ -310,6 +312,43 @@ def test_backward_weight_stream_layout(case):
     assert raw[(first_stage("C2T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(cw["C2"])[k, n]
 
 
+def _unswizzle(image: torch.Tensor, n: int, k: int, narrow: bool) -> torch.Tensor:
+    """A weight-stream entry's stages -> its (n, k) matrix: the inverse of
+    ``_swizzled_slabs`` (the XOR of a row's 16-byte groups with the row
+    number mod 8 is its own inverse); the pad columns must be zero."""
+    slabs = -(-k // 64)
+    rows = n if narrow else 256
+    groups = image[:slabs * rows * 64].view(slabs, rows, 8, 8)[:, :n]
+    idx = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
+    out = torch.gather(groups, 2, idx[None, :, :, None].expand(slabs, n, 8, 8))
+    out = out.permute(1, 0, 2, 3).reshape(n, slabs * 64)
+    assert not out[:, k:].float().any()
+    return out[:, :k]
+
+
+def test_forward_weight_stream_is_the_backward_prefix(case):
+    """``tile_shade_fwd`` (the forward kernel's and the render's weight
+    stream): the first 82 stages of ``tile_shade_bwd``, bit for bit, in the
+    same entries; each entry un-swizzles back to the packs' matrix."""
+    tw, bw, cw = _packs(case["timp"], case["trend"], case["iplan"], grad=False)
+    fwd = tfr.tile_shade_fwd(tw, bw, cw)
+    bwd = fs.tile_shade_bwd(tw, bw, cw)
+    assert tfr.N_FWD_SLABS == 30 + 4 + 30 + 18 == 82
+    assert fwd.dtype == torch.bfloat16 and fwd.shape == (tfr.N_FWD_SLABS * tfq.SLAB,)
+    assert fs.BWD_STREAM[:len(tfr.FWD_STREAM)] == tfr.FWD_STREAM
+    assert torch.equal(fwd.view(torch.int16), bwd[:fwd.numel()].view(torch.int16))
+    mats = tfr.stream_matrices(tw, bw, cw)
+    at = 0
+    for entry in tfr.FWD_STREAM:
+        name, narrow = (entry, 0) if isinstance(entry, str) else entry
+        m = mats[name][:narrow] if narrow else mats[name]
+        stages = fs._stages(entry)
+        got = _unswizzle(fwd[at * tfq.SLAB:(at + stages) * tfq.SLAB], *m.shape, bool(narrow))
+        assert torch.equal(got.view(torch.int16), m.contiguous().view(torch.int16)), entry
+        at += stages
+    assert at == tfr.N_FWD_SLABS
+
+
 def test_frame_bias_gradient_noise():
     """The plain backward against itself with its products summed in
     float64: within the JAX bound on every tensor but the frame bias's, a
@@ -505,7 +544,7 @@ def _worst(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [3000, 131])
+@pytest.mark.parametrize("n", [3000, 131, 257])
 def test_cuda_fused_shade_matches_plain(cuda, case, n):
     """Both kernels against their plain versions on the card: the forward at
     the render kernels' bounds, the backward, given the cotangents of a
