@@ -247,10 +247,68 @@ def bound(tc_flops: float, f32_flops: float, nbytes: float) -> dict:
 
 
 def knn_cost(n_pts: int, V: int, J: int, K: int = 15) -> float:
-    """f32 operations a point of one KNN blend: two sweeps over V vertices
-    (a distance of 9 operations and one comparison each), the exponential
-    and J multiply-adds of the K vertices blended, the normalisation."""
-    return n_pts * (2 * 10.0 * V + K * (2 * J + 2) + J)
+    """f32 operations of n_pts points' KNN blends by brute force: one sweep
+    over V vertices (a distance of 8 operations and one comparison each),
+    the exponential and J multiply-adds of the K vertices blended, the
+    normalisation.  A second sweep is no work the function needs.  Only the
+    brute-force bound reads it (``brute_force_bound_ms``, beside the bound)."""
+    return n_pts * (9.0 * V + K * (2 * J + 2) + J)
+
+
+def knn_needed(n_pts: int, V: int, J: int, K: int = 15) -> float:
+    """f32 operations of n_pts points' KNN blends that no exact search
+    avoids, from the inputs alone: the distances of the min(K, V) vertices
+    that a point's set holds at least (9 operations each; a blend needs
+    them), the exponential and J multiply-adds of each, the normalisation.
+    The other vertices' distances are the search's work, and how many of
+    them it needs depends on how it culls: they are not counted."""
+    return n_pts * (9.0 * min(K, V) + K * (2 * J + 2) + J)
+
+
+def search_counts(torch, label: str, fn) -> dict:
+    """One call of ``fn`` with the vertex search's counters open
+    (ops/knn.py count_search), printed under ``label``: knn.SEARCH_COUNTS
+    and the share of warp-tiles culled."""
+    from hold_tpu_torch.ops import knn
+
+    with knn.count_search(torch.device("cuda")) as c:
+        fn()
+        torch.cuda.synchronize()
+    out = dict(zip(knn.SEARCH_COUNTS, (int(x) for x in c.tolist())))
+    vis, cul = out["tiles_visited"], out["tiles_culled"]
+    out["culled_share"] = cul / max(vis + cul, 1)
+    lanes = max(out["lanes"], 1)
+    inserts = (f", {out['inserts'] / lanes:.1f} inserts a lane in "
+               f"{32 * out['insert_rounds'] / lanes:.1f} rounds a warp" if out["inserts"] else "")
+    print(f"  {label} search: {out['culled_share']:.4f} of {vis + cul} warp-tiles culled, "
+          f"{out['tie_lanes']} of {out['lanes']} lanes took the tie sweep{inserts}", flush=True)
+    return out
+
+
+def check_support(torch, label: str, fn, pts, verts, skin) -> dict:
+    """The blended weights ``fn()`` returns (a kernel's, (B, P, J)) against
+    the plain version's at (pts, verts, skin): the same support exactly (the
+    joints each point's neighbour set reaches: a set that gained or lost a
+    vertex moves it), the weights within 1e-5 (the blend's sums run in
+    another order); with the search's counts.  Raises on a difference."""
+    from hold_tpu_torch.ops import knn
+
+    with knn.count_search(torch.device("cuda")) as c:
+        wb = fn()
+        torch.cuda.synchronize()
+    ref_w, _ = knn._blend_plain(pts, verts, skin, 15)
+    lanes, tie, vis, cul = (int(x) for x in c.tolist()[:4])
+    differ = int(((wb > 0) != (ref_w > 0)).sum())
+    err = max_err(wb, ref_w)
+    ok = differ == 0 and err <= 1e-5
+    print(f"  {label}: neighbour support {differ} of {wb.numel()} weights differ, weights "
+          f"max_abs_err {err:.3e} (tol 1e-5); {tie} of {lanes} lanes took the tie sweep, "
+          f"{cul / max(vis + cul, 1):.4f} of {vis + cul} warp-tiles culled "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the neighbour sets differ from the plain version's")
+    return {"support_differs": differ, "weights_max_abs_err": err, "lanes": lanes,
+            "tie_lanes": tie, "culled_share": cul / max(vis + cul, 1)}
 
 
 def frame_bytes(B: int, V: int, J: int) -> float:
@@ -375,30 +433,39 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     def record(name, err, ms, plain_ms, shape, cost, **extra):
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "shape": shape,
                          "library_ms": None, **cost, **extra}
+        shown = {k: v for k, v in extra.items() if k not in ("buffers", "support", "search")}
         print(f"  {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}) {extra or ''}", flush=True)
+              f"{cost['bound_ms']:.4f} ms ({cost['bound_by']}) {shown or ''}", flush=True)
 
     V, J = verts.shape[1], skin.shape[2]
     n_s, n_g = pts_s.shape[0] * pts_s.shape[1], pts_g.shape[0] * pts_g.shape[1]
     fbytes = frame_bytes(B, V, J)
+    order = scene.plans["right"].tile_order  # the vertices' tile order, as the slice passes it
+    no_library = ("no PyTorch call selects the K-th smallest distinct distance "
+                  "with its ties")
 
     # 1: sampler warp, one error-bound round of 128 samples on 1280 rays
-    got_x, got_o = knn.knn_inverse_warp(pts_s, verts, skin, tfs)
+    got_x, got_o = knn.knn_inverse_warp(pts_s, verts, skin, tfs, order=order)
     ref_x, ref_o = knn.inverse_warp_plain(pts_s, verts, skin, tfs)
     err = check_close("knn_inverse_warp x_c", got_x, ref_x, 1e-5, 1e-5)
     if not torch.equal(got_o, ref_o):
         raise AssertionError("knn_inverse_warp: outlier mask differs")
+    cnt = search_counts(torch, "knn_inverse_warp",
+                        lambda: knn.knn_inverse_warp(pts_s, verts, skin, tfs, order=order))
     record("knn_inverse_warp", err,
-           cuda_ms(torch, lambda: knn.knn_inverse_warp(pts_s, verts, skin, tfs)),
+           cuda_ms(torch, lambda: knn.knn_inverse_warp(pts_s, verts, skin, tfs, order=order)),
            cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_s, verts, skin, tfs)),
            f"B={B} P={pts_s.shape[1]} V={verts.shape[1]}",
-           bound(0, knn_cost(n_s, V, J) + n_s * (24 * J + 45), n_s * 25 + fbytes))
+           bound(0, knn_needed(n_s, V, J) + n_s * (24 * J + 45), n_s * 25 + fbytes),
+           search=cnt, library_note=no_library,
+           brute_force_bound_ms=bound(0, knn_cost(n_s, V, J) + n_s * (24 * J + 45),
+                                      n_s * 25 + fbytes)["bound_ms"])
 
     # 2: grad-stage warp, 98 samples on 1280 rays, forward and backward
     pts_r = pts_g.clone().requires_grad_(True)
     tfs_r = tfs.clone().requires_grad_(True)
     g = torch.randn(pts_g.shape, generator=rng, device=dev)
-    got_x, got_o = knn.knn_inverse_warp_diff(pts_r, verts, skin, tfs_r)
+    got_x, got_o = knn.knn_inverse_warp_diff(pts_r, verts, skin, tfs_r, order=order)
     got_dp, got_dt = torch.autograd.grad(got_x, (pts_r, tfs_r), g)
     ref_x, ref_o = knn.inverse_warp_plain(pts_r, verts, skin, tfs_r)
     ref_dp, ref_dt = torch.autograd.grad(ref_x, (pts_r, tfs_r), g, retain_graph=True)
@@ -410,59 +477,115 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     # a run-dependent order: fp32 reduction-order tolerance
     err_t = check_close("knn_inverse_warp_diff d/dtfs", got_dt, ref_dt, 2e-5, 1e-5)
     shape = f"B={B} P={pts_g.shape[1]} V={verts.shape[1]}"
-    record("knn_inverse_warp_diff.fwd", err_f,
-           cuda_ms(torch, lambda: knn._warp_fwd_cuda(pts_g, verts, skin, tfs, 15, 0.1, True,
-                                                     "knn_inverse_warp_diff.fwd")),
+
+    def warp_fwd(p, v):
+        return knn._warp_fwd_cuda(p, v, skin, tfs, 15, 0.1, True, "knn_inverse_warp_diff.fwd",
+                                  order)
+
+    # the neighbour sets, exactly: the blended weights' support against the
+    # plain version's, as given and with a block of the hand's vertices
+    # duplicated (ties at and under the K-th value)
+    verts_tie = verts.clone()
+    verts_tie[:, 300:364] = verts[:, 100:164]
+    support = {}
+    for tag, vv in (("as given", verts), ("vertices 100-163 duplicated", verts_tie)):
+        support[tag] = check_support(torch, f"knn_inverse_warp_diff, {tag}",
+                                     lambda: warp_fwd(pts_g, vv)[3], pts_g, vv, skin)
+    x_t, o_t, _, _ = warp_fwd(pts_g, verts_tie)
+    ref_xt, ref_ot = knn.inverse_warp_plain(pts_g, verts_tie, skin, tfs)
+    check_close("knn_inverse_warp_diff x_c, vertices 100-163 duplicated", x_t, ref_xt, 1e-5,
+                1e-5)
+    if not torch.equal(o_t, ref_ot):
+        raise AssertionError("knn_inverse_warp_diff: outlier mask differs (duplicated vertices)")
+    if support["vertices 100-163 duplicated"]["tie_lanes"] == 0:
+        raise AssertionError("the duplicated vertices sent no lane through the tie sweep")
+    cnt = search_counts(torch, "knn_inverse_warp_diff.fwd", lambda: warp_fwd(pts_g, verts))
+    record("knn_inverse_warp_diff.fwd", err_f, cuda_ms(torch, lambda: warp_fwd(pts_g, verts)),
            cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_g, verts, skin, tfs)), shape,
-           bound(0, knn_cost(n_g, V, J) + n_g * (24 * J + 45),
-                 n_g * (25 + 36 + 4 * J) + fbytes))
-    _, _, inv, wb = knn._warp_fwd_cuda(pts_g, verts, skin, tfs, 15, 0.1, True,
-                                       "knn_inverse_warp_diff.fwd")
+           bound(0, knn_needed(n_g, V, J) + n_g * (24 * J + 45),
+                 n_g * (25 + 36 + 4 * J) + fbytes),
+           search=cnt, support=support, library_note=no_library,
+           brute_force_bound_ms=bound(0, knn_cost(n_g, V, J) + n_g * (24 * J + 45),
+                                      n_g * (25 + 36 + 4 * J) + fbytes)["bound_ms"])
+    _, _, inv, wb = warp_fwd(pts_g, verts)
     record("knn_inverse_warp_diff.bwd", max(err_p, err_t),
            cuda_ms(torch, lambda: knn._warp_bwd_cuda(g, inv, got_x.detach(), wb)),
            cuda_ms(torch, lambda: torch.autograd.grad(ref_x, (pts_r, tfs_r), g,
                                                       retain_graph=True)), shape,
-           bound(0, n_g * (30 + 24 * J), n_g * (72 + 4 * J) + B * J * 64))
+           bound(0, n_g * (30 + 24 * J), n_g * (72 + 4 * J) + B * J * 64),
+           library_note="no PyTorch call computes this closed-form VJP")
 
     # 3: inverse skinning Jacobian at the canonical points
     xc = got_x.detach().contiguous()
     tfs_r = tfs.clone().requires_grad_(True)
     gj = torch.randn(xc.shape[:2] + (9,), generator=rng, device=dev)
-    got_j = knn.knn_jacobian_inverse(xc, verts_c, skin, tfs_r)
+    got_j = knn.knn_jacobian_inverse(xc, verts_c, skin, tfs_r, order=order)
     (got_jt,) = torch.autograd.grad(got_j, tfs_r, gj)
     ref_j = knn.jacobian_inverse_plain(xc, verts_c, skin, tfs_r)
     (ref_jt,) = torch.autograd.grad(ref_j, tfs_r, gj, retain_graph=True)
     err_f = check_close("knn_jacobian_inverse J^-1", got_j, ref_j, 1e-5, 1e-5)
     err_t = check_close("knn_jacobian_inverse d/dtfs", got_jt, ref_jt, 2e-5, 1e-5)
+    cnt = search_counts(torch, "knn_jacobian_inverse.fwd",
+                        lambda: knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15, order))
     record("knn_jacobian_inverse.fwd", err_f,
-           cuda_ms(torch, lambda: knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15)),
+           cuda_ms(torch, lambda: knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15, order)),
            cuda_ms(torch, lambda: knn.jacobian_inverse_plain(xc, verts_c, skin, tfs)), shape,
-           bound(0, knn_cost(n_g, V, J) + n_g * (18 * J + 30), n_g * (48 + 4 * J) + fbytes))
-    inv_j, wb_j = knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15)
+           bound(0, knn_needed(n_g, V, J) + n_g * (18 * J + 30), n_g * (48 + 4 * J) + fbytes),
+           search=cnt, library_note=no_library,
+           brute_force_bound_ms=bound(0, knn_cost(n_g, V, J) + n_g * (18 * J + 30),
+                                      n_g * (48 + 4 * J) + fbytes)["bound_ms"])
+    inv_j, wb_j = knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15, order)
     record("knn_jacobian_inverse.bwd", err_t,
            cuda_ms(torch, lambda: knn._jinv_bwd_cuda(gj, inv_j, wb_j)),
            cuda_ms(torch, lambda: torch.autograd.grad(ref_j, tfs_r, gj, retain_graph=True)),
-           shape, bound(0, n_g * (108 + 18 * J), n_g * (72 + 4 * J) + B * J * 64))
+           shape, bound(0, n_g * (108 + 18 * J), n_g * (72 + 4 * J) + B * J * 64),
+           library_note="no PyTorch call computes this closed-form VJP")
 
-    # 4: min vertex distance, hand (subdivided mesh) and object (far-padded
-    # empty mesh state with real vertices in the first rows)
+    # 4: min vertex distance on the three buffers the slice gives it: the
+    # hand's subdivided mesh (in its tile order), the object's far-padded
+    # buffer with real vertices in its first rows, and the all-padding empty
+    # object state (phase 5's); the kernel must equal the plain version bit
+    # for bit, within the limits below at worst
     cano = xc.reshape(-1, 3)
     M_sub = scene.sub_ops["right"][0]
     v_div = (M_sub @ srv_out.v_posed[0]).detach().contiguous()
     bound_v = empty_object_mesh_state(dev)["bound_centers"].clone()
     n_obj = server.verts_c.shape[1]
     bound_v[:n_obj] = server.verts_c[0] * 2.0
-    errs = []
-    for label, vv in (("hand", v_div), ("object", bound_v)):
-        got = point_mesh.min_vertex_dist_fast(cano, vv)
+    buffers = {"hand": (v_div, scene.plans["right"].sub_tile_order), "object": (bound_v, None),
+               "empty object": (empty_object_mesh_state(dev)["bound_centers"], None)}
+    errs, by_buffer = [], {}
+    n_c = cano.shape[0]
+    for label, (vv, oo) in buffers.items():
+        got = point_mesh.min_vertex_dist_fast(cano, vv, oo)
         ref = point_mesh.min_vertex_dist(cano, vv)
-        errs.append(check_close(f"min_vertex_dist {label} (V={vv.shape[0]})", got, ref, 1e-5, 1e-4))
-    record("min_vertex_dist", max(errs),
-           cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(cano, bound_v)),
+        errs.append(check_close(f"min_vertex_dist {label} (V={vv.shape[0]})", got, ref, 1e-5,
+                                1e-4))
+        exact = bool(torch.equal(got, ref))
+        print(f"    bit for bit equal to the plain version: {exact}", flush=True)
+        cnt = search_counts(torch, f"min_vertex_dist {label}",
+                            lambda: point_mesh.min_vertex_dist_fast(cano, vv, oo))
+        nbytes = (n_c + vv.shape[0]) * 12.0 + n_c * 4
+        by_buffer[label] = {
+            "V": vv.shape[0], "bit_equal": exact, "search": cnt,
+            "ms": cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(cano, vv, oo)),
+            "library_ms": cuda_ms(torch, lambda: torch.cdist(cano, vv).amin(-1)),
+            # one distance a point is the least an exact search evaluates
+            **bound(0, n_c * 9.0, nbytes),
+            "brute_force_bound_ms": bound(0, n_c * vv.shape[0] * 8.0, nbytes)["bound_ms"]}
+        print(f"    kernel {by_buffer[label]['ms']:.4f} ms, torch.cdist + amin "
+              f"{by_buffer[label]['library_ms']:.4f} ms, bound "
+              f"{by_buffer[label]['bound_ms']:.4f} ms ({by_buffer[label]['bound_by']}; brute "
+              f"force {by_buffer[label]['brute_force_bound_ms']:.4f})", flush=True)
+    obj = by_buffer["object"]
+    record("min_vertex_dist", max(errs), obj["ms"],
            cuda_ms(torch, lambda: point_mesh.min_vertex_dist(cano, bound_v)),
-           f"P={cano.shape[0]} V={bound_v.shape[0]}",
-           bound(0, cano.shape[0] * bound_v.shape[0] * 10.0,
-                 (cano.shape[0] + bound_v.shape[0]) * 12.0 + cano.shape[0] * 4))
+           f"P={n_c} V={bound_v.shape[0]} (the object's buffer; also the hand and the empty "
+           f"state)", {k: obj[k] for k in ("bound_ms", "bound_by", "tc_flops", "f32_flops",
+                                           "bytes")},
+           search=obj["search"], buffers=by_buffer, library_ms=obj["library_ms"],
+           library_call="torch.cdist(pts, verts).amin(-1): two calls",
+           brute_force_bound_ms=obj["brute_force_bound_ms"])
 
     # 5, 6, 12, 13: the fused sampler query, on the first round's 128
     # samples of 1280 rays (z forms) and the same points as a buffer; the
@@ -481,20 +604,21 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     tf12 = torch.cat([inverse_mat3(obj_tfs[:, :3, :3]).reshape(B, 9), obj_tfs[:, :3, 3]],
                      dim=-1).contiguous()
     hand = (verts, skin, tfs, windows["right"], packs["right"])
+    hand_kw = {"order": order}
     obj = (tf12, windows["object"], packs["object"])
     rays = (ray_dirs.contiguous(), cam_loc.contiguous(), z_t)
     pts_b = fq.points_from_rays_z(*rays)
     wbytes = fq.W_TOTAL * 2.0 + fq.F_TOTAL * 4.0
     act = 8 * 256 * 8.0  # softplus100 a hidden unit: f32 operations
-    hand_f32 = knn_cost(1, V, J) + 24 * J + 45  # a point of the hand's warp
+    hand_f32 = knn_needed(1, V, J) + 24 * J + 45  # a point of the hand's warp
     cases = (
-        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays, *hand),
+        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays, *hand, **hand_kw),
          lambda: fq.hand_query_plain(pts_b, *hand).reshape(z_t.shape), f"B={B} P={P} S={S}",
          act + hand_f32, 8.0, wbytes + fbytes + B * P * 24),
         ("fused_object_sampler_sdf_z", lambda: fq.fused_object_sampler_sdf_z(*rays, *obj),
          lambda: fq.object_query_plain(pts_b, *obj).reshape(z_t.shape), f"B={B} P={P} S={S}",
          act + 24, 8.0, wbytes + B * P * 24),
-        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_s, *hand),
+        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_s, *hand, **hand_kw),
          lambda: fq.hand_query_plain(pts_s, *hand), f"B={B} N={pts_s.shape[1]}",
          act + hand_f32, 16.0, wbytes + fbytes),
         ("fused_object_sampler_sdf", lambda: fq.fused_object_sampler_sdf(pts_s, *obj),
@@ -524,16 +648,16 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     rays_1 = (rays[0][:P].contiguous(), rays[1][:P].contiguous(), z_t[:1].contiguous())
     hand_1 = (verts[:1].contiguous(), skin[:1].contiguous(), tfs[:1].contiguous(), *hand[3:])
     for name, kern, plain, shape in (
-        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_r, *hand),
+        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_r, *hand, **hand_kw),
          lambda: fq.hand_query_plain(fq.points_from_rays_z(*rays_r), *hand), f"B={B} P={Pr} S={Sr}"),
         ("fused_object_sampler_sdf_z", lambda: fq.fused_object_sampler_sdf_z(*rays_r, *obj),
          lambda: fq.object_query_plain(fq.points_from_rays_z(*rays_r), *obj),
          f"B={B} P={Pr} S={Sr}"),
-        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_r, *hand),
+        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_r, *hand, **hand_kw),
          lambda: fq.hand_query_plain(pts_r, *hand), f"B={B} N={pts_r.shape[1]}"),
         ("fused_object_sampler_sdf", lambda: fq.fused_object_sampler_sdf(pts_r, *obj),
          lambda: fq.object_query_plain(pts_r, *obj), f"B={B} N={pts_r.shape[1]}"),
-        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_1, *hand_1),
+        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays_1, *hand_1, **hand_kw),
          lambda: fq.hand_query_plain(fq.points_from_rays_z(*rays_1), *hand_1),
          f"B=1 P={P} S={S}"),
     ):
@@ -547,17 +671,23 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     # 10, 11: the KNN blend kernels at the sampler warp's shape
     for name, fn in (("knn_blend_weights", knn.knn_blend_weights),
                      ("knn_blend_weights_t", knn.knn_blend_weights_t)):
-        got_w, got_o = fn(pts_s, verts, skin)
+        got_w, got_o = fn(pts_s, verts, skin, order=order)
         ref_w, ref_o = knn.blend_weights_plain(pts_s, verts, skin)
         if name.endswith("_t"):
             ref_w = ref_w.transpose(1, 2)
         err = check_close(f"{name} weights", got_w, ref_w, 1e-5, 1e-5)
         if not torch.equal(got_o, ref_o):
             raise AssertionError(f"{name}: outlier mask differs")
-        record(name, err, cuda_ms(torch, lambda: fn(pts_s, verts, skin)),
+        if not torch.equal(got_w > 0, ref_w > 0):
+            raise AssertionError(f"{name}: the neighbour sets differ")
+        nbytes = n_s * (13 + 4 * J) + B * V * (12 + 4 * J)
+        cnt = search_counts(torch, name, lambda: fn(pts_s, verts, skin, order=order))
+        record(name, err, cuda_ms(torch, lambda: fn(pts_s, verts, skin, order=order)),
                cuda_ms(torch, lambda: knn.blend_weights_plain(pts_s, verts, skin)),
                f"B={B} P={pts_s.shape[1]} V={V}",
-               bound(0, knn_cost(n_s, V, J), n_s * (13 + 4 * J) + B * V * (12 + 4 * J)))
+               bound(0, knn_needed(n_s, V, J), nbytes), search=cnt,
+               library_note=no_library,
+               brute_force_bound_ms=bound(0, knn_cost(n_s, V, J), nbytes)["bound_ms"])
 
     shade_checks(torch, scene, params, batch, zs["object"], xc, got_j.detach().contiguous(), dev,
                  record, results)
@@ -904,12 +1034,15 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
                 fb0 = fr.frame_bias0(rend, torch.zeros((B, 8), device=dev), tc)
             inputs[nid] = (pts.contiguous(), *frame, *packs, fb0.detach())
     V, J = inputs["right"][1].shape[1], inputs["right"][3].shape[2]
+    order = scene.plans["right"].tile_order
+    hand_search = hand_render_search(torch, inputs["right"], order)
     wbytes = ((fq.W_TOTAL + fr.T_TOTAL + fr.C_TOTAL) * 2.0
               + (fq.F_TOTAL + fr.CB_TOTAL + 256) * 4.0)
     act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
     for name, nid, kern, plain, f32_pp, bytes_once in (
-        ("fused_hand_render", "right", fr.fused_hand_render, fr.hand_render_plain,
-         act + 2 * knn_cost(1, V, J) + 42 * J + 75, wbytes + frame_bytes(B, V, J) + B * V * 12),
+        ("fused_hand_render", "right", lambda *a: fr.fused_hand_render(*a, order=order),
+         fr.hand_render_plain, act + 2 * knn_needed(1, V, J) + 42 * J + 75,
+         wbytes + frame_bytes(B, V, J) + B * V * 12),
         ("fused_object_render", "object", fr.fused_object_render, fr.object_render_plain,
          act + 24, wbytes + 48),
     ):
@@ -949,7 +1082,51 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
                normal_p99=p99, max_abs_sdf=float(ref[0].abs().max()),
                tflop_s=fr.RENDER_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12,
                split_ms=kernel_split(torch, name, lambda: kern(*args),
-                                     ("render_warp_kernel", "render_shade_kernel")))
+                                     ("render_warp_kernel", "render_shade_kernel")),
+               **({"search": hand_search} if nid == "right" else {}))
+
+
+def hand_render_search(torch, args, order) -> dict:
+    """Phase 3, row 8's search, at one render chunk's points (``args``: the
+    hand render's inputs): the warp's two neighbour searches (the posed
+    vertices at the world points, the canonical ones at x_c) through the
+    KNN kernels, which share the render warp kernel's search, held to the
+    plain version's neighbour sets exactly; the render call's culled share;
+    then the render with a block of the hand's vertices duplicated (posed
+    and canonical): its x_c and distance against the plain warp step's,
+    and lanes must take the tie sweep."""
+    from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.ops import knn
+
+    pts, verts, verts_c, skin, tfs = args[:5]
+    out = {}
+    def posed():
+        return knn._warp_fwd_cuda(pts, verts, skin, tfs, 15, 0.1, True,
+                                  "knn_inverse_warp_diff.fwd", order)
+
+    out["posed"] = check_support(torch, "fused_hand_render's search, posed vertices",
+                                 lambda: posed()[3], pts, verts, skin)
+    xc = posed()[0]
+    out["canonical"] = check_support(
+        torch, "fused_hand_render's search, canonical vertices at x_c",
+        lambda: knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15, order)[1], xc, verts_c, skin)
+    out["render"] = search_counts(torch, "fused_hand_render",
+                                  lambda: fr.fused_hand_render(*args, order=order))
+    tie = [t.clone() for t in (verts, verts_c)]
+    for t in tie:
+        t[:, 300:364] = t[:, 100:164]
+    with knn.count_search(torch.device("cuda")) as c:
+        got = fr.fused_hand_render(pts, *tie, *args[3:], order=order)
+        torch.cuda.synchronize()
+    ref_x, _, ref_d = fr.hand_render_warp_plain(pts, *tie, skin, tfs)
+    check_close("fused_hand_render x_c, vertices 100-163 duplicated", got[4], ref_x, 1e-5, 1e-5)
+    check_close("fused_hand_render dist, vertices 100-163 duplicated", got[3], ref_d, 0.0, 1e-5)
+    out["duplicated_tie_lanes"] = int(c[1])
+    print(f"    {int(c[1])} of {int(c[0])} lanes took the tie sweep", flush=True)
+    if int(c[1]) == 0:
+        raise AssertionError("the duplicated vertices sent no lane of the render through the "
+                             "tie sweep")
+    return out
 
 
 def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
@@ -1415,7 +1592,9 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "shape")},
             **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
-                                 "normal_p99", "split_ms") if k in r},
+                                 "normal_p99", "split_ms", "search", "support", "buffers",
+                                 "brute_force_bound_ms", "library_call",
+                                 "library_note") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -17,8 +17,9 @@
 //
 // Bound: operations.  The trunk is 0.97 MFLOP a point (483,584 MACs in the
 // packed layout); its 8 x 256 softplus evaluations a point cost more
-// instruction slots than the products cost tensor time, and the hand adds two
-// sweeps over its 778 vertices.  What held the earlier per-warp kernel back
+// instruction slots than the products cost tensor time, and the hand adds the
+// neighbour search over its 778 vertices (knn_common.cuh: one sweep over
+// the tiles near a warp's points).  What held the earlier per-warp kernel back
 // was none of these: every warp pulled the whole 0.97 MB of weights through
 // L1/L2 as 4-byte mma.sync fragments.
 //
@@ -26,7 +27,8 @@
 //
 // query_embed_kernel (the warp step) is latency-bound scalar work that wants many
 // resident warps: one CTA of 128 threads per tile of 128 points of one frame,
-// the hand's frame vertices staged in shared memory (12 KB, so a dozen CTAs
+// the hand's frame vertices staged in shared memory in tiles with their boxes
+// beside the warps' candidate queues (29 KB for MANO's 778, so several CTAs
 // share an SM), one point a thread.  It writes the bf16 embedding row (48
 // columns) straight into the tile image the trunk's wgmma reads: 16 KB a
 // tile, 96 bytes a point, which stay in L2.
@@ -85,6 +87,8 @@ struct QueryArgs {
     const float* verts;    // posed vertices (B, V, 3)            [HAND]
     const float* skin;     // skinning weights (B, V, J)          [HAND]
     const float* tfs;      // bone transforms (B, J, 4, 4)        [HAND]
+    const int* order;      // the vertices' tile order (V,) [HAND]
+    unsigned long long* stats;  // the search's counters or null [HAND]
     const float* tf12;     // [Rinv row-major | t] (B, 12)        [!HAND]
     const float* window;   // embedding window (E,)
     const __nv_bfloat16* wts;  // the trunk's slabs (tile_for_kernel)
@@ -108,45 +112,46 @@ __device__ __forceinline__ float softplus100_fast(float x) {
 }
 
 // --- the warp step: world point -> canonical point -> bf16 embedding row,
-// one thread per point, written into the trunk's tile image
+// one thread per point, written into the trunk's tile image.  A lane past
+// the last point searches a copy of the last one (the hand's search is
+// warp-wide) and embeds x_c = 0.
 template <bool HAND, bool ZTAB>
 __global__ void __launch_bounds__(TILE) query_embed_kernel(const QueryArgs q) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float s_tf[JMAX * 16];
-    float4* s_verts = reinterpret_cast<float4*>(smem);
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
     const int p = blockIdx.x * TILE + tid;
-    if constexpr (HAND)
-        stage_frame(q.verts + (size_t)b * q.V * 3, q.tfs + (size_t)b * q.J * 16, q.V, q.J,
-                    s_verts, s_tf);
-    float xc[3] = {0.0f, 0.0f, 0.0f};
-    if (p < q.NP) {
-        float x[3];
-        if constexpr (ZTAB) {
-            const size_t ray = (size_t)b * q.P + p / q.S;
-            const float z = q.z[(size_t)b * q.NP + p];
+    const int pc = min(p, q.NP - 1);
+    float x[3];
+    if constexpr (ZTAB) {
+        const size_t ray = (size_t)b * q.P + pc / q.S;
+        const float z = q.z[(size_t)b * q.NP + pc];
 #pragma unroll
-            for (int m = 0; m < 3; ++m)  // cam + z*dir, rounded as two ops (no FMA)
-                x[m] = __fadd_rn(q.cam[3 * ray + m], __fmul_rn(z, q.dirs[3 * ray + m]));
-        } else {
+        for (int m = 0; m < 3; ++m)  // cam + z*dir, rounded as two ops (no FMA)
+            x[m] = __fadd_rn(q.cam[3 * ray + m], __fmul_rn(z, q.dirs[3 * ray + m]));
+    } else {
 #pragma unroll
-            for (int m = 0; m < 3; ++m) x[m] = q.pts[3 * ((size_t)b * q.NP + p) + m];
-        }
-        if constexpr (HAND) {
-            float wb[JMAX], inv[9];
-            knn_blend(s_verts, q.V, q.skin + (size_t)b * q.V * q.J, q.J, q.K, x[0], x[1], x[2],
-                      wb);
-            inverse_skin(wb, s_tf, q.J, x[0], x[1], x[2], inv, xc);
-        } else {  // Rinv (x - t), rounded op by op as the plain version
-            const float* tf = q.tf12 + 12 * b;
-            const float d0 = x[0] - tf[9], d1 = x[1] - tf[10], d2 = x[2] - tf[11];
-#pragma unroll
-            for (int i = 0; i < 3; ++i)
-                xc[i] = __fadd_rn(__fadd_rn(__fmul_rn(tf[3 * i], d0), __fmul_rn(tf[3 * i + 1], d1)),
-                                  __fmul_rn(tf[3 * i + 2], d2));
-        }
+        for (int m = 0; m < 3; ++m) x[m] = q.pts[3 * ((size_t)b * q.NP + pc) + m];
     }
+    float xc[3];
+    if constexpr (HAND) {
+        stage_tfs(q.tfs + (size_t)b * q.J * 16, q.J, s_tf);
+        const VertexSet set = stage_set(q.verts + (size_t)b * q.V * 3, q.order, q.V,
+                                        set_base(smem));
+        float wb[JMAX], inv[9];
+        knn_blend(set, warp_queue(smem), q.skin + (size_t)b * q.V * q.J, q.J, q.K, x[0], x[1],
+                  x[2], p < q.NP, wb, q.stats);
+        inverse_skin(wb, s_tf, q.J, x[0], x[1], x[2], inv, xc);
+    } else {  // Rinv (x - t), rounded op by op as the plain version
+        const float* tf = q.tf12 + 12 * b;
+        const float d0 = x[0] - tf[9], d1 = x[1] - tf[10], d2 = x[2] - tf[11];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+            xc[i] = __fadd_rn(__fadd_rn(__fmul_rn(tf[3 * i], d0), __fmul_rn(tf[3 * i + 1], d1)),
+                              __fmul_rn(tf[3 * i + 2], d2));
+    }
+    if (p >= q.NP) xc[0] = xc[1] = xc[2] = 0.0f;
     // the row's 48 columns as six 16-byte chunks at their swizzled places;
     // columns 48..63 of the image are never read
     __align__(16) __nv_bfloat16 e[EP];
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(THREADS, 1) query_trunk_kernel(const QueryArgs
 template <bool HAND, bool ZTAB>
 cudaError_t launch(const QueryArgs& q, int B, void* stream) {
     if (B == 0 || q.NP == 0) return cudaSuccess;
-    const int vert_bytes = HAND ? q.V * (int)sizeof(float4) : 0;
+    const int vert_bytes = HAND ? (int)search_smem(q.V) : 0;
     cudaError_t err = cudaFuncSetAttribute(query_embed_kernel<HAND, ZTAB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            vert_bytes);
@@ -300,12 +305,14 @@ QueryArgs trunk_args(const void* window, int multires, const void* wts, const vo
 extern "C" {
 
 // dirs, cam (B*P, 3), z (B, P, S), verts (B, V, 3), skin (B, V, J),
-// tfs (B, J, 4, 4) -> out (B, P, S).  emb: scratch of 16 KB per 128-point tile of a
+// tfs (B, J, 4, 4), order (V,) int32 -> out (B, P, S); stats null or the
+// search's six counters (knn_common.cuh).  emb: scratch of 16 KB per 128-point tile of a
 // frame, in every entry point.
 int hold_fused_hand_sdf_z(const void* dirs, const void* cam, const void* z, const void* verts,
-                          const void* skin, const void* tfs, const void* window, const void* wts,
-                          const void* fpack, void* emb, void* out, int B, int P, int S, int V,
-                          int J, int K, int multires, void* stream) {
+                          const void* skin, const void* tfs, const void* order,
+                          const void* window, const void* wts, const void* fpack, void* emb,
+                          void* out, int B, int P, int S, int V, int J, int K, int multires,
+                          void* stats, void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, P * S);
     q.dirs = (const float*)dirs;
     q.cam = (const float*)cam;
@@ -315,6 +322,8 @@ int hold_fused_hand_sdf_z(const void* dirs, const void* cam, const void* z, cons
     q.verts = (const float*)verts;
     q.skin = (const float*)skin;
     q.tfs = (const float*)tfs;
+    q.order = (const int*)order;
+    q.stats = (unsigned long long*)stats;
     q.V = V;
     q.J = J;
     q.K = K;
@@ -335,16 +344,19 @@ int hold_fused_object_sdf_z(const void* dirs, const void* cam, const void* z, co
     return launch<false, true>(q, B, stream);
 }
 
-// pts (B, N, 3), verts (B, V, 3), skin (B, V, J), tfs (B, J, 4, 4) -> out (B, N).
+// pts (B, N, 3), verts (B, V, 3), skin (B, V, J), tfs (B, J, 4, 4), order (V,)
+// int32 -> out (B, N).
 int hold_fused_hand_sdf(const void* pts, const void* verts, const void* skin, const void* tfs,
-                        const void* window, const void* wts, const void* fpack, void* emb,
-                        void* out, int B, int N, int V, int J, int K, int multires,
-                        void* stream) {
+                        const void* order, const void* window, const void* wts,
+                        const void* fpack, void* emb, void* out, int B, int N, int V, int J,
+                        int K, int multires, void* stats, void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, N);
     q.pts = (const float*)pts;
     q.verts = (const float*)verts;
     q.skin = (const float*)skin;
     q.tfs = (const float*)tfs;
+    q.order = (const int*)order;
+    q.stats = (unsigned long long*)stats;
     q.V = V;
     q.J = J;
     q.K = K;

@@ -20,15 +20,16 @@
 //
 // Bound: 1.25 M multiply-adds a point on the tensor cores (RENDER_MACS:
 // trunk and head, the reverse pass, the feature head, the colour MLP), i.e.
-// 2.5 MFLOP; the hand adds four sweeps over its 778 vertices.  Input and
+// 2.5 MFLOP; the hand adds two neighbour searches over its 778 vertices.  Input and
 // output bytes (12 in, 44 out a point) are negligible beside it; the shade's
 // sigmoid scratch is not (shade_common.cuh).
 //
 // Design: the two halves want opposite shapes, as in the fused query.  The
 // warp step is latency-bound scalar work that wants many resident warps: one
 // CTA of 128 threads per 128 points of a frame, one point a thread, the
-// frame's posed and canonical vertices staged in shared memory (24 KB for
-// MANO's 778, so several CTAs share an SM).  The shade wants the whole SM:
+// frame's posed, then its canonical vertices staged in shared memory in tiles
+// with their boxes beside the warps' candidate queues (29 KB for MANO's 778,
+// so several CTAs share an SM; knn_common.cuh).  The shade wants the whole SM:
 // a persistent grid of one CTA an SM, two consumer warpgroups on wgmma, the
 // weights staged once a tile by cp.async.bulk (shade_common.cuh).
 
@@ -51,6 +52,8 @@ struct WarpArgs {
     const float* verts_c;  // canonical vertices (B, V, 3)   [HAND]
     const float* skin;     // skinning weights (B, V, J)     [HAND]
     const float* tfs;      // bone transforms (B, J, 4, 4)   [HAND]
+    const int* order;      // the vertices' tile order (V,) [HAND]
+    unsigned long long* stats;  // the search's counters or null [HAND]
     const float* tf12;     // [Rinv row-major | t] (B, 12)   [!HAND]
     float* xc;             // (B, N, 3)
     float* jinv;           // (B, N, 9) row-major
@@ -58,35 +61,35 @@ struct WarpArgs {
     int N, V, J, K;
 };
 
-// One point a thread: canonical point, J^-1, nearest distance.
+// One point a thread: canonical point, J^-1, nearest distance.  The hand
+// stages its posed vertices, searches them for every point, then stages its
+// canonical vertices in the same place and searches them at x_c: one set in
+// shared memory at a time.  A lane past the last point searches a copy of
+// the last one (the search is warp-wide) and writes nothing.
 template <bool HAND>
 __global__ void __launch_bounds__(WARP_THREADS) render_warp_kernel(const WarpArgs q) {
     extern __shared__ __align__(16) unsigned char warp_smem[];
     __shared__ float s_tf[JMAX * 16];
-    float4* s_vp = reinterpret_cast<float4*>(warp_smem);
-    float4* s_vc = s_vp + (HAND ? q.V : 0);
     const int b = blockIdx.y;
     const int p = blockIdx.x * WARP_THREADS + threadIdx.x;
-    if constexpr (HAND) {
-        stage_frame(q.verts + (size_t)b * q.V * 3, q.tfs + (size_t)b * q.J * 16, q.V, q.J, s_vp,
-                    s_tf);
-        stage_frame(q.verts_c + (size_t)b * q.V * 3, nullptr, q.V, 0, s_vc, s_tf);
-    }
-    if (p >= q.N) return;
-    const size_t i = (size_t)b * q.N + p;
+    const size_t i = (size_t)b * q.N + min(p, q.N - 1);
     const float px = q.pts[3 * i], py = q.pts[3 * i + 1], pz = q.pts[3 * i + 2];
     float xc[3], jinv[9];
     float dist = 0.0f;
     if constexpr (HAND) {
+        stage_tfs(q.tfs + (size_t)b * q.J * 16, q.J, s_tf);
         const float* skin = q.skin + (size_t)b * q.V * q.J;
         float x[3] = {px, py, pz};
         // the blend vs the posed vertices, then vs the canonical ones at x_c:
-        // one loop, so that the sweeps' code and registers exist once
+        // one loop, so that the search's code and registers exist once
 #pragma unroll 1
         for (int pass = 0; pass < 2; ++pass) {
+            if (pass) __syncthreads();  // every warp is done with the posed set
+            const VertexSet set = stage_set((pass ? q.verts_c : q.verts) + (size_t)b * q.V * 3,
+                                            q.order, q.V, set_base(warp_smem));
             float wb[JMAX];
-            const float dmin = knn_blend(pass ? s_vc : s_vp, q.V, skin, q.J, q.K, x[0], x[1],
-                                         x[2], wb);
+            const float dmin = knn_blend(set, warp_queue(warp_smem), skin, q.J, q.K, x[0], x[1],
+                                         x[2], p < q.N, wb, q.stats);
             if (pass == 0) {
                 float inv[9];
                 inverse_skin(wb, s_tf, q.J, x[0], x[1], x[2], inv, xc);
@@ -107,6 +110,7 @@ __global__ void __launch_bounds__(WARP_THREADS) render_warp_kernel(const WarpArg
 #pragma unroll
         for (int c = 0; c < 9; ++c) jinv[c] = tf[c];
     }
+    if (p >= q.N) return;
 #pragma unroll
     for (int d = 0; d < 3; ++d) q.xc[3 * i + d] = xc[d];
 #pragma unroll
@@ -122,7 +126,7 @@ __global__ void __launch_bounds__(shade::THREADS, 1) render_shade_kernel(const s
 template <bool HAND>
 cudaError_t launch(const WarpArgs& w, shade::Args s, int B, int ctas, cudaStream_t stream) {
     if (B == 0 || w.N == 0) return cudaSuccess;
-    const int vert_bytes = HAND ? 2 * w.V * (int)sizeof(float4) : 0;
+    const int vert_bytes = HAND ? (int)search_smem(w.V) : 0;
     cudaError_t err = cudaFuncSetAttribute(render_warp_kernel<HAND>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, vert_bytes);
     if (err != cudaSuccess) return err;
@@ -172,19 +176,23 @@ extern "C" {
 int hold_fused_render_scratch_words() { return shade::SCRATCH_WORDS; }
 
 // pts (B, N, 3), verts and verts_c (B, V, 3), skin (B, V, J), tfs (B, J, 4, 4),
-// fb0 (B, 256) -> sdf (B, N), rgb (B, N, 3), nrm (B, N, 3), dist (B, N), xc (B, N, 3).
+// order (V,) int32, fb0 (B, 256) -> sdf (B, N), rgb (B, N, 3),
+// nrm (B, N, 3), dist (B, N), xc (B, N, 3); stats null or the search's four
+// counters (knn_common.cuh).
 // slabs: the forward's weight stream; jinv: a (B, N, 9) f32 buffer.
 int hold_fused_hand_render(const void* pts, const void* verts, const void* verts_c,
-                           const void* skin, const void* tfs, const void* window,
-                           const void* slabs, const void* fpack, const void* cb, const void* fb0,
-                           void* jinv, void* scratch, void* sdf, void* rgb, void* nrm, void* dist,
-                           void* xc, int B, int N, int V, int J, int K, int multires, int ctas,
-                           void* stream) {
+                           const void* skin, const void* tfs, const void* order,
+                           const void* window, const void* slabs, const void* fpack,
+                           const void* cb, const void* fb0, void* jinv, void* scratch, void* sdf,
+                           void* rgb, void* nrm, void* dist, void* xc, int B, int N, int V, int J,
+                           int K, int multires, int ctas, void* stats, void* stream) {
     WarpArgs w = warp_args(pts, jinv, dist, xc, N);
     w.verts = (const float*)verts;
     w.verts_c = (const float*)verts_c;
     w.skin = (const float*)skin;
     w.tfs = (const float*)tfs;
+    w.order = (const int*)order;
+    w.stats = (unsigned long long*)stats;
     w.V = V;
     w.J = J;
     w.K = K;

@@ -14,35 +14,42 @@
 
 namespace {
 
-constexpr int BLOCK = 128;   // one point per thread
+constexpr int BLOCK = SEARCH_THREADS;   // one point per thread
 
 // Replaces hold_tpu/ops/knn.py _knn_warp_single (knn.py:416) [RESID=false]
 // and the forward of knn_inverse_warp_diff (knn.py:547) [RESID=true].
-// Bound: the two vertex sweeps, 2 x V x ~12 FP32 ops per point (V = 778 for
-// MANO); memory traffic is ~50 bytes per point.  Design: one thread per
-// point, the frame's vertices broadcast from shared memory (every thread of a
-// warp reads the same vertex), the top-K list and the blend in registers, so
-// nothing P x V ever reaches device memory.  Skin weights (V x 16 floats,
-// 50 KB per frame) stay in global memory and are read through the read-only
-// cache only for the ~K vertices that pass the threshold.
+// Bound: by brute force one sweep over the V vertices (V = 778 for MANO) of
+// ~10 f32 operations a vertex and point, then the blend of the K nearest;
+// the tile culling of knn_common.cuh evaluates only the tiles near each
+// warp's points, so the kernel may run under that count.  Memory traffic is
+// ~50 bytes a point.  Design (knn_common.cuh knn_blend): one point a thread,
+// the frame's vertices staged in shared memory in tiles of 32 with their
+// boxes, every thread of a warp reading the same vertex (a broadcast); the
+// K-list and the blend in registers, candidates through a per-lane queue in
+// shared memory, so nothing P x V reaches device memory.  Skin weights (V x
+// 16 floats, 50 KB a frame) stay in global memory and are read through the
+// read-only cache for the K vertices of the list only.
 template <bool RESID>
 __global__ void __launch_bounds__(BLOCK)
 knn_warp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ verts,
                     const float* __restrict__ w, const float* __restrict__ tfs,
-                    float* __restrict__ xc, unsigned char* __restrict__ outlier,
-                    float* __restrict__ inv_out, float* __restrict__ wb_out, int P,
-                    int V, int J, int K, float max_dist) {
-    extern __shared__ float4 s_verts[];
+                    const int* __restrict__ order, float* __restrict__ xc,
+                    unsigned char* __restrict__ outlier, float* __restrict__ inv_out,
+                    float* __restrict__ wb_out, int P, int V, int J, int K, float max_dist,
+                    unsigned long long* stats) {
+    extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float s_tf[JMAX * 16];
     const int b = blockIdx.y;
-    stage_frame(verts + (size_t)b * V * 3, tfs + (size_t)b * J * 16, V, J, s_verts, s_tf);
+    stage_tfs(tfs + (size_t)b * J * 16, J, s_tf);
+    const VertexSet set = stage_set(verts + (size_t)b * V * 3, order, V, set_base(smem));
     const int p = blockIdx.x * BLOCK + threadIdx.x;
-    if (p >= P) return;
-    const size_t q = (size_t)b * P + p;
+    const size_t q = (size_t)b * P + min(p, P - 1);
     const float px = pts[3 * q], py = pts[3 * q + 1], pz = pts[3 * q + 2];
 
     float wb[JMAX];
-    const float dmin = knn_blend(s_verts, V, w + (size_t)b * V * J, J, K, px, py, pz, wb);
+    const float dmin = knn_blend(set, warp_queue(smem), w + (size_t)b * V * J, J, K, px, py, pz,
+                                 p < P, wb, stats);
+    if (p >= P) return;
 
     float inv[9], x[3];
     inverse_skin(wb, s_tf, J, px, py, pz, inv, x);
@@ -64,18 +71,20 @@ knn_warp_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ ver
 __global__ void __launch_bounds__(BLOCK)
 knn_jinv_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ verts,
                     const float* __restrict__ w, const float* __restrict__ tfs,
-                    float* __restrict__ inv_out, float* __restrict__ wb_out, int P, int V,
-                    int J, int K) {
-    extern __shared__ float4 s_verts[];
+                    const int* __restrict__ order, float* __restrict__ inv_out,
+                    float* __restrict__ wb_out, int P, int V, int J, int K,
+                    unsigned long long* stats) {
+    extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float s_tf[JMAX * 16];
     const int b = blockIdx.y;
-    stage_frame(verts + (size_t)b * V * 3, tfs + (size_t)b * J * 16, V, J, s_verts, s_tf);
+    stage_tfs(tfs + (size_t)b * J * 16, J, s_tf);
+    const VertexSet set = stage_set(verts + (size_t)b * V * 3, order, V, set_base(smem));
     const int p = blockIdx.x * BLOCK + threadIdx.x;
-    if (p >= P) return;
-    const size_t q = (size_t)b * P + p;
+    const size_t q = (size_t)b * P + min(p, P - 1);
     float wb[JMAX];
-    knn_blend(s_verts, V, w + (size_t)b * V * J, J, K, pts[3 * q], pts[3 * q + 1],
-              pts[3 * q + 2], wb);
+    knn_blend(set, warp_queue(smem), w + (size_t)b * V * J, J, K, pts[3 * q], pts[3 * q + 1],
+              pts[3 * q + 2], p < P, wb, stats);
+    if (p >= P) return;
     float inv[9];
     blend_jacobian_inverse(wb, s_tf, J, inv);
 #pragma unroll
@@ -90,23 +99,23 @@ knn_jinv_fwd_kernel(const float* __restrict__ pts, const float* __restrict__ ver
 // [TRANSPOSED=true, weights (B,J,P)]: the blended skinning weights and the
 // outlier mask, stop-gradient.  Bound and design as knn_warp_fwd_kernel; the
 // transposed form writes each joint's row with consecutive threads on
-// consecutive points.
+// consecutive points.  It asks for 5 resident CTAs (102 registers at most):
+// without a count ptxas gave it 72 registers and spills (scripts/probe_knn.py).
 template <bool TRANSPOSED>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, 5)
 knn_blend_kernel(const float* __restrict__ pts, const float* __restrict__ verts,
-                 const float* __restrict__ w, float* __restrict__ wout,
-                 unsigned char* __restrict__ outlier, int P, int V, int J, int K,
-                 float max_dist) {
-    extern __shared__ float4 s_verts[];
-    __shared__ float s_tf[JMAX * 16];
+                 const float* __restrict__ w, const int* __restrict__ order,
+                 float* __restrict__ wout, unsigned char* __restrict__ outlier, int P, int V,
+                 int J, int K, float max_dist, unsigned long long* stats) {
+    extern __shared__ __align__(16) unsigned char smem[];
     const int b = blockIdx.y;
-    stage_frame(verts + (size_t)b * V * 3, nullptr, V, 0, s_verts, s_tf);
+    const VertexSet set = stage_set(verts + (size_t)b * V * 3, order, V, set_base(smem));
     const int p = blockIdx.x * BLOCK + threadIdx.x;
-    if (p >= P) return;
-    const size_t q = (size_t)b * P + p;
+    const size_t q = (size_t)b * P + min(p, P - 1);
     float wb[JMAX];
-    const float dmin = knn_blend(s_verts, V, w + (size_t)b * V * J, J, K, pts[3 * q],
-                                 pts[3 * q + 1], pts[3 * q + 2], wb);
+    const float dmin = knn_blend(set, warp_queue(smem), w + (size_t)b * V * J, J, K, pts[3 * q],
+                                 pts[3 * q + 1], pts[3 * q + 2], p < P, wb, stats);
+    if (p >= P) return;
 #pragma unroll
     for (int j = 0; j < JMAX; ++j)
         if (j < J) {
@@ -240,13 +249,15 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
 
 extern "C" {
 
-// pts (B,P,3), verts (B,V,3), w (B,V,J), tfs (B,J,4,4) -> xc (B,P,3),
-// outlier (B,P) u8; with inv_out/wb_out non-null also inv (B,P,9), wb (B,P,J).
+// pts (B,P,3), verts (B,V,3), w (B,V,J), tfs (B,J,4,4), order (V,) int32
+// -> xc (B,P,3), outlier (B,P) u8; with inv_out/wb_out non-null also
+// inv (B,P,9), wb (B,P,J).  stats: null, or six counters (knn_common.cuh).
 int hold_knn_warp_fwd(const void* pts, const void* verts, const void* w, const void* tfs,
-                      void* xc, void* outlier, void* inv_out, void* wb_out, int B, int P,
-                      int V, int J, int K, float max_dist, void* stream) {
+                      const void* order, void* xc, void* outlier, void* inv_out, void* wb_out,
+                      int B, int P, int V, int J, int K, float max_dist, void* stats,
+                      void* stream) {
     if (P == 0 || B == 0) return cudaSuccess;
-    const size_t smem = (size_t)V * sizeof(float4);
+    const size_t smem = search_smem(V);
     const dim3 grid((P + BLOCK - 1) / BLOCK, B);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
@@ -254,37 +265,40 @@ int hold_knn_warp_fwd(const void* pts, const void* verts, const void* w, const v
         if ((err = allow_smem(knn_warp_fwd_kernel<true>, smem)) != cudaSuccess) return err;
         knn_warp_fwd_kernel<true><<<grid, BLOCK, smem, s>>>(
             (const float*)pts, (const float*)verts, (const float*)w, (const float*)tfs,
-            (float*)xc, (unsigned char*)outlier, (float*)inv_out, (float*)wb_out, P, V, J,
-            K, max_dist);
+            (const int*)order, (float*)xc, (unsigned char*)outlier, (float*)inv_out,
+            (float*)wb_out, P, V, J, K, max_dist, (unsigned long long*)stats);
     } else {
         if ((err = allow_smem(knn_warp_fwd_kernel<false>, smem)) != cudaSuccess) return err;
         knn_warp_fwd_kernel<false><<<grid, BLOCK, smem, s>>>(
             (const float*)pts, (const float*)verts, (const float*)w, (const float*)tfs,
-            (float*)xc, (unsigned char*)outlier, nullptr, nullptr, P, V, J, K, max_dist);
+            (const int*)order, (float*)xc, (unsigned char*)outlier, nullptr, nullptr, P, V, J,
+            K, max_dist, (unsigned long long*)stats);
     }
     return cudaGetLastError();
 }
 
-// pts (B,P,3), verts (B,V,3), w (B,V,J) -> weights (B,P,J), or (B,J,P) with
-// transposed != 0, and outlier (B,P) u8.
-int hold_knn_blend(const void* pts, const void* verts, const void* w, void* wout, void* outlier,
-                   int B, int P, int V, int J, int K, float max_dist, int transposed,
-                   void* stream) {
+// pts (B,P,3), verts (B,V,3), w (B,V,J), order (V,) int32 ->
+// weights (B,P,J), or (B,J,P) with transposed != 0, and outlier (B,P) u8.
+int hold_knn_blend(const void* pts, const void* verts, const void* w, const void* order,
+                   void* wout, void* outlier, int B, int P, int V, int J, int K, float max_dist,
+                   int transposed, void* stats, void* stream) {
     if (P == 0 || B == 0) return cudaSuccess;
-    const size_t smem = (size_t)V * sizeof(float4);
+    const size_t smem = search_smem(V);
     const dim3 grid((P + BLOCK - 1) / BLOCK, B);
     cudaStream_t s = (cudaStream_t)stream;
     cudaError_t err;
     if (transposed) {
         if ((err = allow_smem(knn_blend_kernel<true>, smem)) != cudaSuccess) return err;
         knn_blend_kernel<true><<<grid, BLOCK, smem, s>>>(
-            (const float*)pts, (const float*)verts, (const float*)w, (float*)wout,
-            (unsigned char*)outlier, P, V, J, K, max_dist);
+            (const float*)pts, (const float*)verts, (const float*)w, (const int*)order,
+            (float*)wout, (unsigned char*)outlier, P, V, J, K, max_dist,
+            (unsigned long long*)stats);
     } else {
         if ((err = allow_smem(knn_blend_kernel<false>, smem)) != cudaSuccess) return err;
         knn_blend_kernel<false><<<grid, BLOCK, smem, s>>>(
-            (const float*)pts, (const float*)verts, (const float*)w, (float*)wout,
-            (unsigned char*)outlier, P, V, J, K, max_dist);
+            (const float*)pts, (const float*)verts, (const float*)w, (const int*)order,
+            (float*)wout, (unsigned char*)outlier, P, V, J, K, max_dist,
+            (unsigned long long*)stats);
     }
     return cudaGetLastError();
 }
@@ -302,18 +316,20 @@ int hold_knn_warp_bwd(const void* g, const void* inv, const void* xc, const void
     return cudaGetLastError();
 }
 
-// pts (B,P,3), verts (B,V,3), w (B,V,J), tfs (B,J,4,4) -> inv (B,P,9), wb (B,P,J).
+// pts (B,P,3), verts (B,V,3), w (B,V,J), tfs (B,J,4,4), order (V,) int32
+// -> inv (B,P,9), wb (B,P,J).
 int hold_knn_jinv_fwd(const void* pts, const void* verts, const void* w, const void* tfs,
-                      void* inv_out, void* wb_out, int B, int P, int V, int J, int K,
-                      void* stream) {
+                      const void* order, void* inv_out, void* wb_out, int B, int P, int V, int J,
+                      int K, void* stats, void* stream) {
     if (P == 0 || B == 0) return cudaSuccess;
-    const size_t smem = (size_t)V * sizeof(float4);
+    const size_t smem = search_smem(V);
     cudaError_t err = allow_smem(knn_jinv_fwd_kernel, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((P + BLOCK - 1) / BLOCK, B);
     knn_jinv_fwd_kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(
         (const float*)pts, (const float*)verts, (const float*)w, (const float*)tfs,
-        (float*)inv_out, (float*)wb_out, P, V, J, K);
+        (const int*)order, (float*)inv_out, (float*)wb_out, P, V, J, K,
+        (unsigned long long*)stats);
     return cudaGetLastError();
 }
 

@@ -18,6 +18,7 @@ import torch
 
 from ..mano.server import build_mano_server
 from ..ops.fused_render import supports_fused_render
+from ..ops.knn import tile_order
 from ..ops.point_mesh import (
     face_circumradius_bound,
     off_surface_by_vertex_bound,
@@ -128,6 +129,7 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             servers[nid] = build_object_server(obj["pts.cano"], obj["obj_scale"],
                                                obj["norm_mat"], device)
             specs, render_opt = OBJECT_SPECS, _object_render_opt(opt_model)
+            orders = {}
         else:
             servers[nid] = build_mano_server(nid == "right", entities[nid]["mean_shape"],
                                              model_dir=args.get("mano_dir"), device=device)
@@ -135,6 +137,8 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             M, faces_div = mano_subdivision_operator(servers[nid].consts.faces, nid == "right")
             sub_ops[nid] = (torch.as_tensor(M, device=device),
                             torch.as_tensor(faces_div, device=device))
+            orders = {"tile_order": tile_order(servers[nid].verts_c[0]),
+                      "sub_tile_order": tile_order(sub_ops[nid][0] @ servers[nid].verts_c[0])}
         implicit = implicit_net_shapes(opt_model["implicit_network"], specs)
         rendering = rendering_net_shapes(render_opt, specs)
         plans[nid] = NodePlans(
@@ -144,7 +148,7 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             fused_render=fused_render and supports_fused_render(implicit, rendering),
             fused_train=(fused_train and fused_render
                          and supports_fused_render(implicit, rendering)),
-            remat=remat,
+            remat=remat, **orders,
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,
@@ -277,7 +281,8 @@ def prepare_loss_targets_hand(nparams, scene: Scene, nid: str, sample_dict: dict
         "pred_sdf": pred[:, 0].reshape(B, Ns),
         # conservative vertex-distance bound in place of the exact sweep
         "index_off_surface": off_surface_by_vertex_bound(
-            sample_dict["canonical_pts"].reshape(-1, 3), v_div, B * P, 0.01, h_margin
+            sample_dict["canonical_pts"].reshape(-1, 3), v_div, B * P, 0.01, h_margin,
+            plans.sub_tile_order,
         ),
         "grad_theta": _eikonal_grad_samples(
             nparams, plans, scene.servers[nid].verts_c.expand(B, -1, -1), 0.008,

@@ -87,6 +87,10 @@ class NodePlans(NamedTuple):
     fused_render: bool = False  # render shade through ops/fused_render.py
     fused_train: bool = False  # grad-stage shade through ops/fused_shade.py
     remat: bool = True  # the chunked shade recomputes each chunk in the backward
+    # the vertex searches' tile orders (ops/knn.py tile_order), int32, hands
+    # only: of the MANO vertices and of the subdivided mesh's
+    tile_order: torch.Tensor | None = None
+    sub_tile_order: torch.Tensor | None = None
 
 
 def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
@@ -209,11 +213,13 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
     S_f = z_vals.shape[1]
     pts = (cam_loc[:, None, :] + z_vals[:, :, None] * ray_dirs[:, None, :]).reshape(B, P * S_f, 3)
     x_c, outlier = knn_inverse_warp_diff(
-        pts, verts_posed, skin_w, tfs, K=plans.knn_k, max_dist=plans.max_dist
+        pts, verts_posed, skin_w, tfs, K=plans.knn_k, max_dist=plans.max_dist,
+        order=plans.tile_order,
     )
     # inverse skinning Jacobian at the canonical points (weights queried
     # against the CANONICAL vertices)
-    jinv9 = knn_jacobian_inverse(x_c, verts_c, skin_w, tfs, K=plans.knn_k)
+    jinv9 = knn_jacobian_inverse(x_c, verts_c, skin_w, tfs, K=plans.knn_k,
+                                 order=plans.tile_order)
     sample_dict = {
         "canonical_pts": x_c.reshape(B, P, S_f, 3),
         "cond_pose": cond_pose,
@@ -347,7 +353,8 @@ def mano_node_render(nparams, server: ManoServerState, plans: NodePlans, batch, 
     if packs is None:
         packs = node_render_packs(nparams, plans, pts.device)
     sdf, rgb, nrm, dist, x_c = fused_hand_render(
-        pts, verts_posed, verts_c, skin_w, tfs, *packs, frame_bias0(rend, pe), K=plans.knn_k)
+        pts, verts_posed, verts_c, skin_w, tfs, *packs, frame_bias0(rend, pe), K=plans.knn_k,
+        order=plans.tile_order)
     factors = _node_outputs(plans, nparams, z_vals, sdf.reshape(-1), rgb, nrm, B, P, S_f)
     sample_dict = {
         "canonical_pts": x_c.reshape(B, P, S_f, 3),
@@ -420,7 +427,7 @@ def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_l
         def query_z(z_RS):
             sdf = fused_hand_sampler_sdf_z(dirs, cams, z_RS.reshape(B, P, -1).contiguous(),
                                            verts_posed, skin_w, tfs, window, pack,
-                                           K=plans.knn_k)
+                                           K=plans.knn_k, order=plans.tile_order)
             return sdf.reshape(B * P, -1)
 
         return error_bound_z_vals(gen, None, ray_dirs, cam_loc, beta0, plans.sampler,
@@ -431,7 +438,8 @@ def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_l
     def sampler_sdf(pts_RS3):
         S = pts_RS3.shape[1]
         x_c, _ = knn_inverse_warp(pts_RS3.reshape(B, P * S, 3), verts_posed, skin_w, tfs,
-                                  K=plans.knn_k, max_dist=plans.max_dist)
+                                  K=plans.knn_k, max_dist=plans.max_dist,
+                                  order=plans.tile_order)
         return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
 
     return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)

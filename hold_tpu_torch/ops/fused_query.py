@@ -37,7 +37,7 @@ import math
 import torch
 
 from . import _cuda
-from .knn import JMAX, KMAX, inverse_warp_plain
+from .knn import JMAX, KMAX, VMAX, check_order, inverse_warp_plain, stats_ptr
 from ..models.embedders import barf_alpha, barf_window, fourier_embed
 from ..models.mlp import softplus100
 
@@ -45,9 +45,6 @@ H = 256  # trunk width
 EMB_PAD = 48  # embedding columns the kernel multiplies (three MMA k-steps)
 TILE = 128  # points a CTA owns (csrc/cta_gemm.cuh TILE_M)
 EMB_TILE_BYTES = TILE * 128  # a tile's embedding rows as the trunk kernel reads them
-# hand vertices (16 B each) that fit a CTA's shared memory (227 KB) beside the
-# warp step's bone transforms (1 KB)
-VMAX = (232_448 - 1024) // 16
 
 # the packed bf16 trunk, in csrc/fused_query.cu's order: (name, rows, cols),
 # every matrix (out, in) row-major
@@ -342,9 +339,11 @@ def _emb_scratch(B: int, n: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def fused_hand_sampler_sdf_z(ray_dirs, cam_loc, z, verts, skin_weights, tfs, window, pack,
-                             K: int = 15):
+                             K: int = 15, *, order):
     """Hand: rays (B*P, 3) x z (B, P, S), MANO frame (verts (B,V,3), skin
-    (B,V,J), tfs (B,J,4,4)) -> sdf (B, P, S) f32."""
+    (B,V,J), tfs (B,J,4,4)) -> sdf (B, P, S) f32.  ``order``: the vertices'
+    ``knn.tile_order``, which the kernel's search reads them in (the plain
+    version does not read it)."""
     B, P, S = z.shape
     if z.is_cuda:
         _check_rays(ray_dirs, cam_loc, z)
@@ -352,9 +351,10 @@ def fused_hand_sampler_sdf_z(ray_dirs, cam_loc, z, verts, skin_weights, tfs, win
         multires = _check_trunk(window, pack)
         out = torch.empty((B, P, S), dtype=torch.float32, device=z.device)
         _cuda.launch("hold_fused_hand_sdf_z",
-                     *_ptr(ray_dirs, cam_loc, z, verts, skin_weights, tfs, window,
-                           pack["tiled"], pack["f32"], _emb_scratch(B, P * S, z.device), out),
-                     B, P, S, V, J, K, multires)
+                     *_ptr(ray_dirs, cam_loc, z, verts, skin_weights, tfs), check_order(order, V),
+                     *_ptr(window, pack["tiled"], pack["f32"], _emb_scratch(B, P * S, z.device),
+                           out),
+                     B, P, S, V, J, K, multires, stats_ptr())
         LAUNCHES["fused_hand_sampler_sdf_z"] += 1
         return out
     _require_cpu(z)
@@ -383,7 +383,8 @@ def fused_object_sampler_sdf_z(ray_dirs, cam_loc, z, tf_inv12, window, pack):
 
 
 @torch.no_grad()
-def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int = 15):
+def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int = 15, *,
+                           order):
     """Hand from a point buffer: pts (B, N, 3) -> sdf (B, N) f32."""
     B, N = pts.shape[:2]
     if pts.is_cuda:
@@ -392,8 +393,9 @@ def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int =
         multires = _check_trunk(window, pack)
         out = torch.empty((B, N), dtype=torch.float32, device=pts.device)
         _cuda.launch("hold_fused_hand_sdf",
-                     *_ptr(pts, verts, skin_weights, tfs, window, pack["tiled"], pack["f32"],
-                           _emb_scratch(B, N, pts.device), out), B, N, V, J, K, multires)
+                     *_ptr(pts, verts, skin_weights, tfs), check_order(order, V),
+                     *_ptr(window, pack["tiled"], pack["f32"], _emb_scratch(B, N, pts.device),
+                           out), B, N, V, J, K, multires, stats_ptr())
         LAUNCHES["fused_hand_sampler_sdf"] += 1
         return out
     _require_cpu(pts)

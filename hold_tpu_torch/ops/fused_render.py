@@ -50,15 +50,12 @@ from .fused_query import (
     rigid_inverse_plain,
     supports_fused_query,
 )
-from .knn import _blend_plain, jacobian_inverse_plain, skinning
+from .knn import _blend_plain, check_order, jacobian_inverse_plain, skinning, stats_ptr
 from ..models.embedders import fourier_embed
 from ..models.mlp import softplus100
 
 C0A = 16  # colour layer-0 columns the kernel multiplies for [x_c | normal | 0 ...]
 TILE = 128  # points a tile of the shade kernel (csrc/cta_gemm.cuh TILE_M)
-# hand vertices, posed and canonical (16 B each), that fit the warp kernel's
-# shared memory (227 KB) beside its bone transforms (1 KB)
-VMAX = (232_448 - 1024) // 32
 
 # the transposed trunk and the feature head, in csrc/fused_render.cu's order:
 # (name, rows, cols); W*T are (in, out), feat_w is (out, in)
@@ -394,9 +391,9 @@ def _shade_stream(pack, tpack_t, cpack) -> torch.Tensor:
 
 
 def _launch_render(name: str, B: int, N: int, dev, ptrs_in: list, ints: tuple, pack, tpack_t,
-                   cpack, fb0, window) -> tuple:
+                   cpack, fb0, window, tail: tuple = ()) -> tuple:
     """Both kernels of one render call: the outputs, J^-1's buffer, the
-    scratch."""
+    scratch; ``tail``: the entry point's last arguments."""
     multires = _check_render(window, pack, tpack_t, cpack, fb0, B)
     slabs = _shade_stream(pack, tpack_t, cpack)
     outs = tuple(torch.empty(s, dtype=torch.float32, device=dev)
@@ -404,27 +401,27 @@ def _launch_render(name: str, B: int, N: int, dev, ptrs_in: list, ints: tuple, p
     jinv = torch.empty((B, N, 9), dtype=torch.float32, device=dev)
     scratch, ctas = shade_scratch(B * N, dev)
     _cuda.launch(name, *ptrs_in, *_ptr(window, slabs, pack["f32"], cpack["f32"], fb0, jinv,
-                                       scratch, *outs), B, N, *ints, multires, ctas)
+                                       scratch, *outs), B, N, *ints, multires, ctas, *tail)
     return outs
 
 
 @torch.no_grad()
 def fused_hand_render(pts, verts_posed, verts_c, skin_weights, tfs, window, pack, tpack_t,
-                      cpack, fb0, K: int = 15):
+                      cpack, fb0, K: int = 15, *, order):
     """Hand: world points (B, N, 3), the frame's posed and canonical vertices
     (B, V, 3), skinning weights (B, V, J), bone transforms (B, J, 4, 4), the
     packs and the frame bias (B, 256) -> (sdf, rgb, normal, nearest distance,
-    x_c)."""
+    x_c).  ``order``: the vertices' ``knn.tile_order``, which the warp
+    kernel's search reads them in (the plain version does not read it)."""
     B, N = pts.shape[:2]
     if pts.is_cuda:
         _cuda.check(pts, "pts", (B, N, 3))
         V, J = _check_hand(verts_posed, skin_weights, tfs, B, K)
-        if V > VMAX:
-            raise ValueError(f"V={V} vertices exceed the fused render's {VMAX}")
         _cuda.check(verts_c, "verts_c", (B, V, 3))
         outs = _launch_render("hold_fused_hand_render", B, N, pts.device,
-                              _ptr(pts, verts_posed, verts_c, skin_weights, tfs), (V, J, K),
-                              pack, tpack_t, cpack, fb0, window)
+                              [*_ptr(pts, verts_posed, verts_c, skin_weights, tfs),
+                               check_order(order, V)], (V, J, K),
+                              pack, tpack_t, cpack, fb0, window, (stats_ptr(),))
         LAUNCHES["fused_hand_render"] += 1
         return outs
     _require_cpu(pts)

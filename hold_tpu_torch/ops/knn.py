@@ -29,10 +29,19 @@ Four kernels, each with a plain PyTorch version in this module:
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel from ``csrc/knn.cu`` or raises; it never falls back.
 Each launch adds one to ``LAUNCHES[name]``.
+
+The kernels search the vertices in tiles of 32 that lie close in space
+(``csrc/knn_common.cuh``): ``tile_order`` makes that order once per vertex
+set, and every wrapper requires it as ``order`` (the scene keeps the hand's
+as ``NodePlans.tile_order``; the plain versions' results do not depend on
+it).  ``count_search`` gathers the search's counts while it is open.
 """
 
 from __future__ import annotations
 
+import contextlib
+
+import numpy as np
 import torch
 
 from . import _cuda
@@ -40,9 +49,25 @@ from ..utils.transforms import inverse_affine4, inverse_mat3
 
 _CLAMP = 4.0
 _BIG = 1e9
-KMAX = 16  # register top-list length in csrc/knn.cu
+KMAX = 16  # register list length of the search (csrc/knn_common.cuh)
 JMAX = 16
-VMAX = 14000  # vertices that fit the kernels' shared memory (16 B each)
+TILE_V = 32  # vertices a tile of the search
+# a 128-thread CTA's candidate queues: 16 entries (d2, slot) of 8 bytes a lane
+QUEUE_BYTES = 4 * 16 * 32 * 8
+
+
+def search_vmax() -> int:
+    """Most vertices V whose staged set (16 bytes a vertex and two 16-byte
+    boxes a tile of 32) fits beside a 128-thread CTA's candidate queues in
+    its shared memory (227 KB less the 1 KB of bone transforms)."""
+    room = (232_448 - 1024 - QUEUE_BYTES) // 16
+    V = room * TILE_V // (TILE_V + 2)
+    while V + 2 * -(-V // TILE_V) > room:
+        V -= 1
+    return V
+
+
+VMAX = search_vmax()
 
 LAUNCHES = {
     "knn_blend_weights": 0,
@@ -58,6 +83,66 @@ LAUNCHES = {
 def _require_cpu(t: torch.Tensor) -> None:
     if t.device.type != "cpu":
         raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def tile_order(verts: torch.Tensor) -> torch.Tensor:
+    """The kernels' vertex order for a vertex set (V, 3): tiles of TILE_V
+    consecutive vertices that lie close in space, by recursive median
+    splits along the longest extent, each a multiple of TILE_V vertices
+    (only the last tile is partial).  int32 (V,) on ``verts``' device, made
+    once per vertex set on the host."""
+    v = verts.detach().reshape(-1, 3).cpu().double().numpy()
+
+    def split(idx):
+        if len(idx) <= TILE_V:
+            return [idx]
+        pts = v[idx]
+        axis = int(np.argmax(pts.max(0) - pts.min(0)))
+        idx = idx[np.argsort(pts[:, axis], kind="stable")]
+        tiles = -(-len(idx) // TILE_V)
+        left = TILE_V * -(-tiles // 2)  # the partial tile, if any, stays rightmost
+        return split(idx[:left]) + split(idx[left:])
+
+    order = np.concatenate(split(np.arange(len(v)))) if len(v) else np.zeros(0, np.int64)
+    return torch.as_tensor(order.astype(np.int32), device=verts.device)
+
+
+# the search's counts while count_search is open (SEARCH_COUNTS)
+_STATS: list = []
+SEARCH_COUNTS = ("lanes", "tie_lanes", "tiles_visited", "tiles_culled", "insert_rounds",
+                 "inserts")
+
+
+@contextlib.contextmanager
+def count_search(device):
+    """While open, every kernel that searches vertices (the KNN kernels, the
+    fused query's and render's hand warp steps, min_vertex_dist) adds its
+    counts to the yielded int64 tensor (6,) on ``device``, in the order of
+    ``SEARCH_COUNTS``: lanes searched, lanes that took the tie sweep, tiles a
+    warp visited, tiles a warp culled, the insertion rounds warps ran (each
+    lane inserts once a round), the candidates lanes inserted into their
+    lists (min_vertex_dist counts the lanes and tiles only)."""
+    counts = torch.zeros(len(SEARCH_COUNTS), dtype=torch.int64, device=device)
+    _STATS.append(counts)
+    try:
+        yield counts
+    finally:
+        _STATS.remove(counts)
+
+
+def stats_ptr():
+    """The open counters' address for a kernel, or None."""
+    return _STATS[-1].data_ptr() if _STATS else None
+
+
+def check_order(order, V: int):
+    """The order's address for a kernel; raises unless it is a contiguous
+    int32 CUDA tensor (V,)."""
+    if order is None:
+        raise ValueError("the kernel searches the vertices in tile order: pass "
+                         "order=knn.tile_order(verts)")
+    _cuda.check(order, "order", (V,), torch.int32)
+    return order.data_ptr()
 
 
 # --------------------------------------------------------------------------
@@ -169,19 +254,19 @@ def _check_knn(pts, verts, skin_weights, tfs, K):
     return B, P, V, J
 
 
-def _blend_cuda(pts, verts, skin_weights, K, max_dist, transposed):
+def _blend_cuda(pts, verts, skin_weights, K, max_dist, transposed, order):
     B, P, V, J = _check_blend(pts, verts, skin_weights, K)
     shape = (B, J, P) if transposed else (B, P, J)
     w = torch.empty(shape, dtype=torch.float32, device=pts.device)
     outlier = torch.empty((B, P), dtype=torch.bool, device=pts.device)
     _cuda.launch("hold_knn_blend", pts.data_ptr(), verts.data_ptr(), skin_weights.data_ptr(),
-                 w.data_ptr(), outlier.data_ptr(), B, P, V, J, K, float(max_dist),
-                 int(transposed))
+                 check_order(order, V), w.data_ptr(), outlier.data_ptr(), B, P, V, J, K,
+                 float(max_dist), int(transposed), stats_ptr())
     LAUNCHES["knn_blend_weights_t" if transposed else "knn_blend_weights"] += 1
     return w, outlier
 
 
-def _warp_fwd_cuda(pts, verts, skin_weights, tfs, K, max_dist, resid, name):
+def _warp_fwd_cuda(pts, verts, skin_weights, tfs, K, max_dist, resid, name, order):
     B, P, V, J = _check_knn(pts, verts, skin_weights, tfs, K)
     dev = pts.device
     xc = torch.empty((B, P, 3), dtype=torch.float32, device=dev)
@@ -192,9 +277,9 @@ def _warp_fwd_cuda(pts, verts, skin_weights, tfs, K, max_dist, resid, name):
         wb = torch.empty((B, P, J), dtype=torch.float32, device=dev)
     _cuda.launch(
         "hold_knn_warp_fwd", pts.data_ptr(), verts.data_ptr(),
-        skin_weights.data_ptr(), tfs.data_ptr(), xc.data_ptr(),
+        skin_weights.data_ptr(), tfs.data_ptr(), check_order(order, V), xc.data_ptr(),
         outlier.data_ptr(), None if inv is None else inv.data_ptr(),
-        None if wb is None else wb.data_ptr(), B, P, V, J, K, float(max_dist),
+        None if wb is None else wb.data_ptr(), B, P, V, J, K, float(max_dist), stats_ptr(),
     )
     LAUNCHES[name] += 1
     return xc, outlier, inv, wb
@@ -215,15 +300,15 @@ def _warp_bwd_cuda(g, inv, xc, wb):
     return dpts, dtfs
 
 
-def _jinv_fwd_cuda(pts_c, verts_c, skin_weights, tfs, K):
+def _jinv_fwd_cuda(pts_c, verts_c, skin_weights, tfs, K, order):
     """Kernel 3 forward: (J^-1 (B,P,9), blended weights (B,P,J))."""
     B, P, V, J = _check_knn(pts_c, verts_c, skin_weights, tfs, K)
     inv = torch.empty((B, P, 9), dtype=torch.float32, device=pts_c.device)
     wb = torch.empty((B, P, J), dtype=torch.float32, device=pts_c.device)
     _cuda.launch(
         "hold_knn_jinv_fwd", pts_c.data_ptr(), verts_c.data_ptr(),
-        skin_weights.data_ptr(), tfs.data_ptr(), inv.data_ptr(), wb.data_ptr(),
-        B, P, V, J, K,
+        skin_weights.data_ptr(), tfs.data_ptr(), check_order(order, V), inv.data_ptr(),
+        wb.data_ptr(), B, P, V, J, K, stats_ptr(),
     )
     LAUNCHES["knn_jacobian_inverse.fwd"] += 1
     return inv, wb
@@ -245,10 +330,10 @@ def _jinv_bwd_cuda(g, inv, wb):
 
 class _InverseWarpDiff(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pts, verts, skin_weights, tfs, K, max_dist):
+    def forward(ctx, pts, verts, skin_weights, tfs, K, max_dist, order):
         xc, outlier, inv, wb = _warp_fwd_cuda(
             pts, verts, skin_weights, tfs, K, max_dist, True,
-            "knn_inverse_warp_diff.fwd",
+            "knn_inverse_warp_diff.fwd", order,
         )
         ctx.save_for_backward(inv, xc, wb)
         ctx.mark_non_differentiable(outlier)
@@ -257,53 +342,57 @@ class _InverseWarpDiff(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_xc, _g_outlier):
         dpts, dtfs = _warp_bwd_cuda(g_xc, *ctx.saved_tensors)
-        return dpts, None, None, dtfs, None, None
+        return dpts, None, None, dtfs, None, None, None
 
 
 class _JacobianInverse(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pts_c, verts_c, skin_weights, tfs, K):
-        inv, wb = _jinv_fwd_cuda(pts_c, verts_c, skin_weights, tfs, K)
+    def forward(ctx, pts_c, verts_c, skin_weights, tfs, K, order):
+        inv, wb = _jinv_fwd_cuda(pts_c, verts_c, skin_weights, tfs, K, order)
         ctx.save_for_backward(inv, wb)
         return inv
 
     @staticmethod
     def backward(ctx, g):
-        return None, None, None, _jinv_bwd_cuda(g, *ctx.saved_tensors), None
+        return None, None, None, _jinv_bwd_cuda(g, *ctx.saved_tensors), None, None
 
 
 # --------------------------------------------------------------------------
 # Public wrappers
 # --------------------------------------------------------------------------
 
-def knn_blend_weights(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1):
+def knn_blend_weights(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1, *,
+                      order):
     """KNN blend (stop-gradient): pts (B,P,3), verts (B,V,3), skin_weights
-    (B,V,J) -> (weights (B,P,J), outlier (B,P))."""
+    (B,V,J) -> (weights (B,P,J), outlier (B,P)).  ``order``, in every
+    wrapper here: the vertices' ``tile_order``, which the kernel searches
+    in (the plain version does not read it)."""
     args = [t.detach() for t in (pts, verts, skin_weights)]
     if pts.is_cuda:
-        return _blend_cuda(*args, K, max_dist, False)
+        return _blend_cuda(*args, K, max_dist, False, order)
     _require_cpu(pts)
     return blend_weights_plain(*args, K, max_dist)
 
 
-def knn_blend_weights_t(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1):
+def knn_blend_weights_t(pts, verts, skin_weights, K: int = 15, max_dist: float = 0.1, *,
+                        order):
     """Points-minor KNN blend (stop-gradient): -> (weights (B,J,P), outlier (B,P))."""
     args = [t.detach() for t in (pts, verts, skin_weights)]
     if pts.is_cuda:
-        return _blend_cuda(*args, K, max_dist, True)
+        return _blend_cuda(*args, K, max_dist, True, order)
     _require_cpu(pts)
     w, outlier = blend_weights_plain(*args, K, max_dist)
     return w.transpose(1, 2).contiguous(), outlier
 
 
 def knn_inverse_warp(pts, verts, skin_weights, tfs, K: int = 15,
-                     max_dist: float = 0.1):
+                     max_dist: float = 0.1, *, order):
     """Sampler warp (stop-gradient): pts (B,P,3), verts (B,V,3),
     skin_weights (B,V,J), tfs (B,J,4,4) -> (x_c (B,P,3), outlier (B,P))."""
     args = [t.detach() for t in (pts, verts, skin_weights, tfs)]
     if pts.is_cuda:
         xc, outlier, _, _ = _warp_fwd_cuda(
-            *args, K, max_dist, False, "knn_inverse_warp"
+            *args, K, max_dist, False, "knn_inverse_warp", order
         )
         return xc, outlier
     _require_cpu(pts)
@@ -312,23 +401,23 @@ def knn_inverse_warp(pts, verts, skin_weights, tfs, K: int = 15,
 
 
 def knn_inverse_warp_diff(pts, verts, skin_weights, tfs, K: int = 15,
-                          max_dist: float = 0.1):
+                          max_dist: float = 0.1, *, order):
     """Differentiable warp of the grad stage: gradients reach ``pts`` and
     ``tfs``; ``verts`` and ``skin_weights`` are detached by contract."""
     verts, skin_weights = verts.detach(), skin_weights.detach()
     if pts.is_cuda:
-        return _InverseWarpDiff.apply(pts, verts, skin_weights, tfs, K, max_dist)
+        return _InverseWarpDiff.apply(pts, verts, skin_weights, tfs, K, max_dist, order)
     _require_cpu(pts)
     return inverse_warp_plain(pts, verts, skin_weights, tfs, K, max_dist)
 
 
-def knn_jacobian_inverse(pts_c, verts_c, skin_weights, tfs, K: int = 15):
+def knn_jacobian_inverse(pts_c, verts_c, skin_weights, tfs, K: int = 15, *, order):
     """(B,P,3),(B,V,3),(B,V,J),(B,J,4,4) -> (B,P,9) row-major J^-1 at
     canonical points; gradient reaches the rotations of ``tfs`` only."""
     pts_c, verts_c = pts_c.detach(), verts_c.detach()
     skin_weights = skin_weights.detach()
     if pts_c.is_cuda:
-        return _JacobianInverse.apply(pts_c, verts_c, skin_weights, tfs, K)
+        return _JacobianInverse.apply(pts_c, verts_c, skin_weights, tfs, K, order)
     _require_cpu(pts_c)
     return jacobian_inverse_plain(pts_c, verts_c, skin_weights, tfs, K)
 

@@ -5,7 +5,9 @@ Brute-force point-triangle distances with a generalized winding number for
 the sign (the meshes are small), and the conservative vertex-distance
 off-surface bound.  ``min_vertex_dist_fast`` is the one kernel here
 (``csrc/point_mesh.cu``): on CUDA tensors it launches it or raises, on CPU
-tensors it runs the plain ``min_vertex_dist``.
+tensors it runs the plain ``min_vertex_dist``.  The kernel culls tiles of 32
+vertices as the KNN search does; ``knn.tile_order`` of a vertex set makes its
+tiles compact (the scene keeps one for each hand's subdivided mesh).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import math
 import torch
 
 from . import _cuda
-from .knn import sqnorm3
+from .knn import check_order, sqnorm3, stats_ptr
 
 _EPS = 1e-12
 LAUNCHES = {"min_vertex_dist": 0}
@@ -111,9 +113,10 @@ def min_vertex_dist(pts, verts, chunk_elems: int = 1 << 24):
     return torch.sqrt(torch.clamp(torch.cat(out), min=0.0))
 
 
-def min_vertex_dist_fast(pts, verts):
+def min_vertex_dist_fast(pts, verts, order=None):
     """Kernel 4: min distance (P,) from points (P,3) to vertices (V,3),
-    stop-gradient.  CUDA tensors launch csrc/point_mesh.cu; CPU tensors run
+    stop-gradient.  CUDA tensors launch csrc/point_mesh.cu, which reads the
+    vertices in ``order`` ((V,) int32; None: as they lie); CPU tensors run
     the plain version."""
     pts, verts = pts.detach(), verts.detach()
     if pts.is_cuda:
@@ -121,8 +124,10 @@ def min_vertex_dist_fast(pts, verts):
         _cuda.check(pts, "pts", (P, 3))
         _cuda.check(verts, "verts", (V, 3))
         out = torch.empty((P,), dtype=torch.float32, device=pts.device)
+        if order is None:
+            order = torch.arange(V, dtype=torch.int32, device=pts.device)
         _cuda.launch("hold_min_vertex_dist", pts.data_ptr(), verts.data_ptr(),
-                     out.data_ptr(), P, V)
+                     check_order(order, V), out.data_ptr(), P, V, stats_ptr())
         LAUNCHES["min_vertex_dist"] += 1
         return out
     if pts.device.type != "cpu":
@@ -132,11 +137,11 @@ def min_vertex_dist_fast(pts, verts):
 
 
 def off_surface_by_vertex_bound(pts, verts, num_rays: int, threshold: float,
-                                h_margin) -> torch.Tensor:
+                                h_margin, order=None) -> torch.Tensor:
     """Conservative off-surface ray classification: min over a ray's samples
     of the vertex distance > threshold + h implies the exact
     point-to-mesh test (d_triangle <= d_vertex <= d_triangle + h)."""
-    d = min_vertex_dist_fast(pts, verts)
+    d = min_vertex_dist_fast(pts, verts, order)
     per_ray = torch.amin(d.reshape(num_rays, -1), dim=1)
     return per_ray > (threshold + h_margin)
 

@@ -51,6 +51,7 @@ from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
 from hold_tpu_torch.models.mlp import resolve_weight_norm
 from hold_tpu_torch.ops import fused_query as tfq
+from hold_tpu_torch.ops.knn import tile_order
 from hold_tpu_torch.train import batch_to_device
 from hold_tpu_torch.utils.convert import params_from_jax
 
@@ -153,17 +154,18 @@ def _query_case(kind, form, B=2, P=6, S=64):
         frame = (tf12,)
     jframe = tuple(map(jnp.asarray, frame))
     tframe = tuple(map(T, frame))
+    order = {"order": tile_order(tframe[0][0])} if kind == "hand" else {}
     if form == "z":
         rays8 = jfq.pack_rays8(jnp.asarray(dirs), jnp.asarray(cam), B, P, S)
         jfn = jfq.fused_hand_sampler_sdf_z if kind == "hand" else jfq.fused_object_sampler_sdf_z
         tfn = tfq.fused_hand_sampler_sdf_z if kind == "hand" else tfq.fused_object_sampler_sdf_z
         ref = jfn(rays8, jnp.asarray(z), *jframe, plan_arr, jpack, interpret=True)
-        got = tfn(T(dirs), T(cam), T(z), *tframe, window, tpack)
+        got = tfn(T(dirs), T(cam), T(z), *tframe, window, tpack, **order)
     else:
         jfn = jfq.fused_hand_sampler_sdf if kind == "hand" else jfq.fused_object_sampler_sdf
         tfn = tfq.fused_hand_sampler_sdf if kind == "hand" else tfq.fused_object_sampler_sdf
         ref = jfn(jnp.asarray(pts), *jframe, plan_arr, jpack, interpret=True)
-        got = tfn(T(pts), *tframe, window, tpack)
+        got = tfn(T(pts), *tframe, window, tpack, **order)
     return np.asarray(ref), got.numpy()
 
 
@@ -339,10 +341,12 @@ def test_cuda_kernels_match_plain(cuda, kind):
     dirs, cam, z, pts = (torch.tensor(a, device=cuda) for a in (dirs, cam, z, pts))
     cpu = [t.cpu() for t in frame]
     cpack = {k: v.cpu() for k, v in pack.items()}
+    order = {"order": tile_order(frame[0][0])} if kind == "hand" else {}
     for got, ref in (
-        (fz(dirs, cam, z, *frame, window, pack),
-         fz(dirs.cpu(), cam.cpu(), z.cpu(), *cpu, window.cpu(), cpack)),
-        (fb(pts, *frame, window, pack), fb(pts.cpu(), *cpu, window.cpu(), cpack)),
+        (fz(dirs, cam, z, *frame, window, pack, **order),
+         fz(dirs.cpu(), cam.cpu(), z.cpu(), *cpu, window.cpu(), cpack, **order)),
+        (fb(pts, *frame, window, pack, **order),
+         fb(pts.cpu(), *cpu, window.cpu(), cpack, **order)),
     ):
         torch.cuda.synchronize()
         d = (got.cpu() - ref).abs()

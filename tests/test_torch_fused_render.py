@@ -174,7 +174,8 @@ def _render_case(kind, B=2, N=600):
         tfb = tfr.frame_bias0(trend, t_apply_linear(trend["lin_pose"], T(pose)))
         ref = jfr.fused_hand_render(*map(jnp.asarray, (pts, verts_p, verts_c, w, tfs)), plan_arr,
                                     *jpacks, jfb, K=15, interpret=True)
-        got = tfr.fused_hand_render(*map(T, (pts, verts_p, verts_c, w, tfs)), *tpacks, tfb, K=15)
+        got = tfr.fused_hand_render(*map(T, (pts, verts_p, verts_c, w, tfs)), *tpacks, tfb, K=15,
+                                    order=tknn.tile_order(T(verts_p[0])))
     else:
         pts = (rng.randn(B, N, 3) * 0.3).astype(np.float32)
         tfs = _rigid_tfs(rng, B, 1, 0.8, 0.2)[:, 0]
@@ -312,7 +313,8 @@ def test_knn_blend_weights_match_pallas(form):
                 (jknn.knn_blend_weights_t, tknn.knn_blend_weights_t))
     wj, oj = jfn(jnp.asarray(pts), jnp.asarray(verts), jnp.asarray(w), K=15, max_dist=0.05,
                  interpret=True)
-    wt, ot = tfn(*map(torch.tensor, (pts, verts, w)), K=15, max_dist=0.05)
+    wt, ot = tfn(*map(torch.tensor, (pts, verts, w)), K=15, max_dist=0.05,
+                 order=tknn.tile_order(torch.tensor(verts[0])))
     assert wt.shape == wj.shape
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj), atol=2e-6)
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
@@ -526,7 +528,8 @@ def test_cuda_render_kernels_match_plain(cuda, kind, n):
             (rng.randn(B, V, 3) * 0.12).astype(np.float32),
             (rng.randn(B, V, 3) * 0.12).astype(np.float32),
             (w / w.sum(-1, keepdims=True)).astype(np.float32), _rigid_tfs(rng, B, J, 0.3, 0.05))]
-        fn = tfr.fused_hand_render
+        fn = functools.partial(tfr.fused_hand_render,
+                               order=tknn.tile_order(frame[0][0].to(cuda)))
     else:
         tfs = _rigid_tfs(rng, B, 1, 0.8, 0.2)[:, 0]
         frame = [torch.tensor(np.concatenate([np.linalg.inv(tfs[:, :3, :3]).reshape(B, 9),
@@ -553,8 +556,9 @@ def test_cuda_render_kernels_match_plain(cuda, kind, n):
 def test_cuda_knn_blend_matches_plain(cuda, form):
     pts, verts, w = (torch.tensor(a) for a in _blend_inputs(seed=11, P=5000))
     fn = tknn.knn_blend_weights if form == "bpj" else tknn.knn_blend_weights_t
-    wg, og = fn(pts.to(cuda), verts.to(cuda), w.to(cuda), K=15, max_dist=0.05)
+    order = tknn.tile_order(verts[0].to(cuda))
+    wg, og = fn(pts.to(cuda), verts.to(cuda), w.to(cuda), K=15, max_dist=0.05, order=order)
     torch.cuda.synchronize()
-    wr, orf = fn(pts, verts, w, K=15, max_dist=0.05)
+    wr, orf = fn(pts, verts, w, K=15, max_dist=0.05, order=order)
     np.testing.assert_allclose(wg.cpu().numpy(), wr.numpy(), atol=1e-5)
     assert torch.equal(og.cpu(), orf)

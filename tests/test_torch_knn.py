@@ -39,6 +39,11 @@ def _scene(seed, B=2, P=60, V=50, J=16, spread=0.1):
     return pts, verts, w, tfs, g, g9
 
 
+def _order(verts):
+    """The port's tile order of a frame's vertices (B, V, 3) numpy."""
+    return tknn.tile_order(torch.tensor(verts[0]))
+
+
 def _mano_scene(seed, P=512):
     """MANO-sized: the synthetic template's 778 vertices and 16-joint skin
     weights, with sampler-like points spread over a 2-unit box."""
@@ -64,7 +69,7 @@ def test_inverse_warp_matches_pallas(make, K, max_dist):
     xj, oj = jknn.knn_inverse_warp(jnp.asarray(pts), jnp.asarray(verts), jnp.asarray(w),
                                    jnp.asarray(tfs), K=K, max_dist=max_dist, interpret=True)
     xt, ot = tknn.knn_inverse_warp(*map(torch.tensor, (pts, verts, w, tfs)), K=K,
-                                   max_dist=max_dist)
+                                   max_dist=max_dist, order=_order(verts))
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=FWD_ATOL)
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
 
@@ -83,7 +88,7 @@ def test_inverse_warp_diff_forward_and_grads_match_pallas(make, K, max_dist):
     p_t = torch.tensor(pts, requires_grad=True)
     tf_t = torch.tensor(tfs, requires_grad=True)
     xt, _ = tknn.knn_inverse_warp_diff(p_t, torch.tensor(verts), torch.tensor(w), tf_t, K=K,
-                                       max_dist=max_dist)
+                                       max_dist=max_dist, order=_order(verts))
     (xt * torch.tensor(g)).sum().backward()
     np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj), atol=FWD_ATOL)
     np.testing.assert_allclose(p_t.grad.numpy(), np.asarray(gpj), rtol=GRAD_RTOL, atol=GRAD_ATOL)
@@ -105,7 +110,8 @@ def test_jacobian_inverse_forward_and_grads_match_pallas(make, K, max_dist):
     (_, jj), gtj = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(tfs))
     tf_t = torch.tensor(tfs, requires_grad=True)
     p_t = torch.tensor(pts, requires_grad=True)
-    jt = tknn.knn_jacobian_inverse(p_t, torch.tensor(verts), torch.tensor(w), tf_t, K=K)
+    jt = tknn.knn_jacobian_inverse(p_t, torch.tensor(verts), torch.tensor(w), tf_t, K=K,
+                                   order=_order(verts))
     (jt * torch.tensor(g9)).sum().backward()
     np.testing.assert_allclose(jt.detach().numpy(), np.asarray(jj), atol=5e-5, rtol=1e-5)
     scale = np.abs(np.asarray(gtj)).max()
@@ -132,7 +138,8 @@ def test_threshold_semantics_differ_from_clamped_top_k_far_from_the_mesh():
                                                  jnp.asarray(w), K=7, interpret=True)
     wj_topk, _ = jknn.knn_blend_weights_xla(jnp.asarray(pts), jnp.asarray(verts),
                                             jnp.asarray(w), K=7)
-    wt, _ = tknn.knn_blend_weights(torch.tensor(pts), torch.tensor(verts), torch.tensor(w), K=7)
+    wt, _ = tknn.knn_blend_weights(torch.tensor(pts), torch.tensor(verts), torch.tensor(w), K=7,
+                                   order=_order(verts))
     np.testing.assert_allclose(wt.numpy(), np.asarray(wj_pallas), atol=1e-6)
     assert np.abs(np.asarray(wj_pallas) - np.asarray(wj_topk)).max() > 1e-3
 
@@ -161,22 +168,55 @@ def cuda():
 def test_cuda_kernels_match_plain(cuda):
     pts, verts, w, tfs, g, g9 = _mano_scene(7, P=4096)
     args = [torch.tensor(a, device=cuda) for a in (pts, verts, w, tfs)]
-    xk, ok = tknn.knn_inverse_warp(*args)
+    order = tknn.tile_order(args[1][0])
+    xk, ok = tknn.knn_inverse_warp(*args, order=order)
     xr, orf = tknn.inverse_warp_plain(*args)
     torch.testing.assert_close(xk, xr, atol=1e-5, rtol=1e-5)
     assert torch.equal(ok, orf)
     p_k = args[0].clone().requires_grad_(True)
     t_k = args[3].clone().requires_grad_(True)
-    xk, _ = tknn.knn_inverse_warp_diff(p_k, args[1], args[2], t_k)
+    xk, _ = tknn.knn_inverse_warp_diff(p_k, args[1], args[2], t_k, order=order)
     dk = torch.autograd.grad(xk, (p_k, t_k), torch.tensor(g, device=cuda))
     dr = torch.autograd.grad(tknn.inverse_warp_plain(p_k, args[1], args[2], t_k)[0],
                              (p_k, t_k), torch.tensor(g, device=cuda))
     for a, b in zip(dk, dr):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     t_k = args[3].clone().requires_grad_(True)
-    jk = tknn.knn_jacobian_inverse(args[0], args[1], args[2], t_k)
+    jk = tknn.knn_jacobian_inverse(args[0], args[1], args[2], t_k, order=order)
     jr = tknn.jacobian_inverse_plain(args[0], args[1], args[2], t_k)
     torch.testing.assert_close(jk, jr, atol=1e-5, rtol=1e-5)
     gk = torch.autograd.grad(jk, t_k, torch.tensor(g9, device=cuda))[0]
     gr = torch.autograd.grad(jr, t_k, torch.tensor(g9, device=cuda))[0]
     torch.testing.assert_close(gk, gr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("duplicated", [False, True], ids=["tiled", "duplicated_block"])
+def test_cuda_search_keeps_the_plain_neighbour_sets(cuda, duplicated):
+    """The kernels' search in the vertices' tile order: the same neighbour
+    sets as the plain version exactly (the blended weights' support), with a
+    block of vertices duplicated too, which must send lanes through the tie
+    sweep; every kernel that searches."""
+    pts, verts, w, tfs, _, _ = _mano_scene(7, P=4096)
+    if duplicated:
+        verts[:, 300:364] = verts[:, 100:164]
+    args = [torch.tensor(a, device=cuda) for a in (pts, verts, w, tfs)]
+    order = tknn.tile_order(args[1][0])
+    ref_w, ref_dmin = tknn._blend_plain(args[0], args[1], args[2], 15)
+    with tknn.count_search(cuda) as counts:
+        xk, ok, _, wb = tknn._warp_fwd_cuda(*args, 15, 0.1, True, "knn_inverse_warp_diff.fwd",
+                                            order)
+        torch.cuda.synchronize()
+    assert torch.equal(wb > 0, ref_w > 0)
+    torch.testing.assert_close(wb, ref_w, atol=1e-6, rtol=0.0)
+    assert torch.equal(ok, tknn._outlier(ref_dmin, 0.1))
+    torch.testing.assert_close(xk, tknn.inverse_warp_plain(*args)[0], atol=1e-5, rtol=1e-5)
+    if duplicated:
+        assert int(counts[1]) > 0
+    _, wj = tknn._jinv_fwd_cuda(*args, 15, order)
+    assert torch.equal(wj > 0, ref_w > 0)
+    for fn in (tknn.knn_blend_weights, tknn.knn_blend_weights_t):
+        wk, okb = fn(*args[:3], order=order)
+        wk = wk.transpose(1, 2) if fn is tknn.knn_blend_weights_t else wk
+        assert torch.equal(wk > 0, ref_w > 0)
+        assert torch.equal(okb, ok)

@@ -84,3 +84,19 @@ def test_cuda_min_vertex_dist_matches_plain(cuda):
     p, v = torch.tensor(pts, device=cuda), torch.tensor(verts, device=cuda)
     got = tpm.min_vertex_dist_fast(p, v)
     torch.testing.assert_close(got, tpm.min_vertex_dist(p, v), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("V,pad,tiled", [(3000, 0, True), (778, 7414, False), (0, 8192, False)],
+                         ids=["tiled_cloud", "object_buffer", "all_padding"])
+def test_cuda_min_vertex_dist_culls_exactly(cuda, V, pad, tiled):
+    """Tile culling changes no minimum: bit for bit the plain version on a
+    tiled cloud, the object's far-padded buffer and the all-padding empty
+    state, at points ordered as consecutive ray samples."""
+    from hold_tpu_torch.ops.knn import tile_order
+
+    pts, verts = _cloud(V + pad, 20000, V, pad)
+    pts = pts[np.argsort(pts[:, 0], kind="stable")]  # neighbouring lanes, neighbouring points
+    p, v = torch.tensor(pts, device=cuda), torch.tensor(verts, device=cuda)
+    got = tpm.min_vertex_dist_fast(p, v, tile_order(v) if tiled else None)
+    assert torch.equal(got, tpm.min_vertex_dist(p, v))
