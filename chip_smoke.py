@@ -6,11 +6,18 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Environment: versions, the card's name and power limit, TF32 off.
-2. Build: compile hold_tpu_torch/csrc/*.cu for sm_90a (nvcc, first use).
+2. Build: compile hold_tpu_torch/csrc/*.cu for sm_90a (nvcc, first use),
+   and the meshing's hold_tpu_torch/meshing/csrc/mise.cpp (g++).
 3. Kernel checks: each hand-written kernel against its plain PyTorch
    version on the card, at the shapes one full-width training step gives
    it, with the tolerance stated; kernel and plain times from CUDA events
-   over enough launches to fill 100 ms.  The fused query's four forms run
+   over enough launches to fill 100 ms.  Rows 2-3's backward must give the
+   same tensors bit for bit call after call and equal the plain PyTorch
+   repetition of their summation order bit for bit; they are timed by
+   device time (torch.profiler) beside the wrapper's.  Row 4 runs on four
+   buffers, the last the object's mesh state as meshing makes it from these
+   parameters, against the object's own canonical points.  The fused
+   query's four forms run
    again at shapes that are no multiple of its 128-point tile, and the hand's
    on one frame alone.  The fused training shade (row 7)
    runs forward and backward at the grad stage's real canonical points and
@@ -33,8 +40,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the CPU.
 5. The training slice: ``hold_tpu_torch.train.run_training`` on the
    synthetic sequence (12 frames, 240x320) at full width, 10 frames x 128
-   rays = 1280 rays per step, three times: 5 steps with the defaults (fused
-   sampler, fused training shade), 3 steps with ``--no_fused_sampler`` (the
+   rays = 1280 rays per step, three times: 6 steps with the defaults (fused
+   sampler, fused training shade) and meshing on, two steps an epoch (so
+   that the nodes are meshed at epoch 3, after the last step, on the worker
+   thread, and the object's state adopted when it ends: the steps' times
+   stay clean of it; the run must leave the object's mesh on disk and a
+   valid state); then that run's parameters meshed again at the
+   reference's resolutions, timed (SDF queries on the device, MISE on the
+   host), the object's state from it must turn the object's sparse and
+   eikonal terms on, and 3 steps with it and 3 with the empty state give
+   grad_ms side by side; then 3 steps with ``--no_fused_sampler`` (the
    layer-by-layer sampler), 3 steps with ``--no_fused_train`` (the chunked
    shade, each chunk recomputed in the backward) and 2 more of those with
    ``--no_remat`` (for its peak memory), every kernel's launch counter set to
@@ -70,7 +85,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STEPS = 5
+STEPS = 6
 FRAMES, IMG_HW = 12, (240, 320)
 BATCH_SIZE, RAYS_PER_FRAME = 5, 128
 LAYER_STEPS = 3
@@ -210,21 +225,27 @@ def cuda_ms(torch, fn, fill_ms: float = 100.0, max_reps: int = 5000) -> float:
     return timed(min(max(3, math.ceil(fill_ms / max(once, 1e-3))), max_reps))
 
 
-def kernel_split(torch, label: str, fn, keys: tuple, calls: int = 3) -> dict | None:
+def kernel_split(torch, label: str, fn, keys: tuple, calls: int = 3,
+                 tries: int = 3) -> dict | None:
     """Device ms a call of ``fn`` by kernel (``keys``: substrings of kernel
     names; the rest as "other"), from torch.profiler over ``calls`` calls;
-    printed under ``label``, and None when the profiler saw no device events."""
+    printed under ``label``, and None when the profiler saw no device events
+    in ``tries`` profiles (on an H100 it once saw none for a call of two
+    kernels of a few microseconds)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     split = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = next((k for k in keys if k in e.name), "other (memset, copies, elementwise)")
-            split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / (1e3 * calls)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                key = next((k for k in keys if k in e.name), "other (memset, copies, elementwise)")
+                split[key] = split.get(key, 0.0) + e.time_range.elapsed_us() / (1e3 * calls)
+        if split:
+            break
     if not split:
         print(f"  {label} by kernel: not measured (the profiler saw no device events)", flush=True)
         return None
@@ -309,6 +330,49 @@ def check_support(torch, label: str, fn, pts, verts, skin) -> dict:
         raise AssertionError(f"{label}: the neighbour sets differ from the plain version's")
     return {"support_differs": differ, "weights_max_abs_err": err, "lanes": lanes,
             "tie_lanes": tie, "culled_share": cul / max(vis + cul, 1)}
+
+
+def object_mesh(params, scene):
+    """The object's canonical mesh at the reference's resolutions (32,
+    res_up 2) and its mesh state; raises unless the field has a surface and
+    the state is valid."""
+    from hold_tpu_torch.meshing.cano import mesh_object_cano
+    from hold_tpu_torch.models.holdnet import object_mesh_state_from_mesh
+
+    mesh = mesh_object_cano(params["object"], scene)
+    if mesh is None or mesh.faces.shape[0] == 0:
+        raise AssertionError("the object's field gave no mesh")
+    state = object_mesh_state_from_mesh(mesh.vertices, mesh.faces, scene.device)
+    if float(state["valid"]) != 1.0:
+        raise AssertionError(f"the object's mesh ({mesh.vertices.shape[0]} vertices) gave an "
+                             f"invalid mesh state")
+    return mesh, state
+
+
+def fixed_order_check(torch, label: str, kern, mirror) -> dict:
+    """Rows 2-3's backward: two calls of ``kern`` must give the same tensors
+    bit for bit, and equal ``mirror`` (ops/knn.py's plain PyTorch repetition
+    of the kernels' summation order) bit for bit.  Times it by device time
+    (torch.profiler, its two kernels) and by wrapper time (CUDA events
+    around the call: the workspace's allocation and the launch too).
+    Returns {"ms": device time, or the wrapper's when the profiler saw no
+    device events, "extra": the readings}."""
+    first, again, ref = kern(), kern(), mirror()
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+    equal = all(bool(torch.equal(a, c)) for a, c in zip(first, ref))
+    print(f"  {label}: two calls bit for bit equal {same}, equal to the fixed-order plain "
+          f"version bit for bit {equal} {'ok' if same and equal else 'FAIL'}", flush=True)
+    if not (same and equal):
+        raise AssertionError(f"{label}: the sums are not the fixed order's")
+    wrapper_ms = cuda_ms(torch, kern)
+    split = kernel_split(torch, label, kern, ("knn_tfs_bwd_kernel", "knn_tfs_bwd_final_kernel"))
+    device_ms = sum(split.values()) if split else None
+    device = "not measured" if device_ms is None else f"{device_ms:.4f} ms"
+    print(f"  {label}: device {device}, wrapper {wrapper_ms:.4f} ms", flush=True)
+    return {"ms": wrapper_ms if device_ms is None else device_ms,
+            "extra": {"wrapper_ms": wrapper_ms, "split_ms": split, "bit_identical": same,
+                      "equals_fixed_order": equal}}
 
 
 def frame_bytes(B: int, V: int, J: int) -> float:
@@ -399,6 +463,7 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     )
     from hold_tpu_torch.models.mlp import resolve_weight_norm
     from hold_tpu_torch.models.nodes import _mano_pose, _object_pose
+    from hold_tpu_torch.models.object_model import object_deform
     from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import knn, point_mesh
     from hold_tpu_torch.utils.transforms import inverse_mat3
@@ -473,8 +538,8 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     if not torch.equal(got_o, ref_o):
         raise AssertionError("knn_inverse_warp_diff: outlier mask differs")
     err_p = check_close("knn_inverse_warp_diff d/dpts", got_dp, ref_dp, 1e-5, 1e-5)
-    # the per-frame transform gradient sums 12,544 points with atomicAdd in
-    # a run-dependent order: fp32 reduction-order tolerance
+    # the per-frame transform gradient sums 12,544 points in another order
+    # than the plain version's autograd: fp32 reduction-order tolerance
     err_t = check_close("knn_inverse_warp_diff d/dtfs", got_dt, ref_dt, 2e-5, 1e-5)
     shape = f"B={B} P={pts_g.shape[1]} V={verts.shape[1]}"
 
@@ -508,12 +573,15 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
            brute_force_bound_ms=bound(0, knn_cost(n_g, V, J) + n_g * (24 * J + 45),
                                       n_g * (25 + 36 + 4 * J) + fbytes)["bound_ms"])
     _, _, inv, wb = warp_fwd(pts_g, verts)
-    record("knn_inverse_warp_diff.bwd", max(err_p, err_t),
-           cuda_ms(torch, lambda: knn._warp_bwd_cuda(g, inv, got_x.detach(), wb)),
+    xc_g = got_x.detach()
+    bwd = fixed_order_check(torch, "knn_inverse_warp_diff.bwd",
+                            lambda: knn._warp_bwd_cuda(g, inv, xc_g, wb),
+                            lambda: knn.warp_bwd_fixed_order(g, inv, xc_g, wb))
+    record("knn_inverse_warp_diff.bwd", max(err_p, err_t), bwd["ms"],
            cuda_ms(torch, lambda: torch.autograd.grad(ref_x, (pts_r, tfs_r), g,
                                                       retain_graph=True)), shape,
            bound(0, n_g * (30 + 24 * J), n_g * (72 + 4 * J) + B * J * 64),
-           library_note="no PyTorch call computes this closed-form VJP")
+           library_note="no PyTorch call computes this closed-form VJP", **bwd["extra"])
 
     # 3: inverse skinning Jacobian at the canonical points
     xc = got_x.detach().contiguous()
@@ -535,41 +603,57 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
            brute_force_bound_ms=bound(0, knn_cost(n_g, V, J) + n_g * (18 * J + 30),
                                       n_g * (48 + 4 * J) + fbytes)["bound_ms"])
     inv_j, wb_j = knn._jinv_fwd_cuda(xc, verts_c, skin, tfs, 15, order)
-    record("knn_jacobian_inverse.bwd", err_t,
-           cuda_ms(torch, lambda: knn._jinv_bwd_cuda(gj, inv_j, wb_j)),
+    bwd = fixed_order_check(torch, "knn_jacobian_inverse.bwd",
+                            lambda: (knn._jinv_bwd_cuda(gj, inv_j, wb_j),),
+                            lambda: (knn.jinv_bwd_fixed_order(gj, inv_j, wb_j),))
+    record("knn_jacobian_inverse.bwd", err_t, bwd["ms"],
            cuda_ms(torch, lambda: torch.autograd.grad(ref_j, tfs_r, gj, retain_graph=True)),
            shape, bound(0, n_g * (108 + 18 * J), n_g * (72 + 4 * J) + B * J * 64),
-           library_note="no PyTorch call computes this closed-form VJP")
+           library_note="no PyTorch call computes this closed-form VJP", **bwd["extra"])
 
-    # 4: min vertex distance on the three buffers the slice gives it: the
+    # 4: min vertex distance on the four buffers the slice gives it: the
     # hand's subdivided mesh (in its tile order), the object's far-padded
-    # buffer with real vertices in its first rows, and the all-padding empty
-    # object state (phase 5's); the kernel must equal the plain version bit
-    # for bit, within the limits below at worst
+    # buffer with the hand's vertices x 2 in its first rows, and the
+    # all-padding empty object state, against the hand's canonical points;
+    # and the object's mesh state as meshing makes it (these parameters'
+    # field at the reference's resolutions) against the object's canonical
+    # grad-stage points; the kernel must equal the plain version bit for
+    # bit, within the limits below at worst
     cano = xc.reshape(-1, 3)
     M_sub = scene.sub_ops["right"][0]
     v_div = (M_sub @ srv_out.v_posed[0]).detach().contiguous()
     bound_v = empty_object_mesh_state(dev)["bound_centers"].clone()
     n_obj = server.verts_c.shape[1]
     bound_v[:n_obj] = server.verts_c[0] * 2.0
-    buffers = {"hand": (v_div, scene.plans["right"].sub_tile_order), "object": (bound_v, None),
-               "empty object": (empty_object_mesh_state(dev)["bound_centers"], None)}
+    mesh, state = object_mesh(params, scene)
+    with torch.no_grad():
+        obj_tfs = _object_pose(params["object"], scene.servers["object"], batch).obj_tfs
+        pts_o = (cam_loc[:, None] + zs["object"][..., None] * ray_dirs[:, None]).reshape(B, -1, 3)
+        cano_o = object_deform(pts_o, obj_tfs, inverse=True).reshape(-1, 3).contiguous()
+    buffers = {"hand": (v_div, scene.plans["right"].sub_tile_order, cano),
+               "object": (bound_v, None, cano),
+               "empty object": (empty_object_mesh_state(dev)["bound_centers"], None, cano),
+               "object mesh": (state["bound_centers"], None, cano_o)}
+    print(f"  the object's mesh at these parameters: {mesh.vertices.shape[0]} vertices, "
+          f"{mesh.faces.shape[0]} faces; its state keeps "
+          f"{int((state['bound_centers'][:, 0] < 1e4).sum())} of {state['bound_centers'].shape[0]}"
+          f" bound rows", flush=True)
     errs, by_buffer = [], {}
-    n_c = cano.shape[0]
-    for label, (vv, oo) in buffers.items():
-        got = point_mesh.min_vertex_dist_fast(cano, vv, oo)
-        ref = point_mesh.min_vertex_dist(cano, vv)
-        errs.append(check_close(f"min_vertex_dist {label} (V={vv.shape[0]})", got, ref, 1e-5,
-                                1e-4))
+    for label, (vv, oo, pp) in buffers.items():
+        got = point_mesh.min_vertex_dist_fast(pp, vv, oo)
+        ref = point_mesh.min_vertex_dist(pp, vv)
+        errs.append(check_close(f"min_vertex_dist {label} (P={pp.shape[0]} V={vv.shape[0]})",
+                                got, ref, 1e-5, 1e-4))
         exact = bool(torch.equal(got, ref))
         print(f"    bit for bit equal to the plain version: {exact}", flush=True)
         cnt = search_counts(torch, f"min_vertex_dist {label}",
-                            lambda: point_mesh.min_vertex_dist_fast(cano, vv, oo))
+                            lambda: point_mesh.min_vertex_dist_fast(pp, vv, oo))
+        n_c = pp.shape[0]
         nbytes = (n_c + vv.shape[0]) * 12.0 + n_c * 4
         by_buffer[label] = {
-            "V": vv.shape[0], "bit_equal": exact, "search": cnt,
-            "ms": cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(cano, vv, oo)),
-            "library_ms": cuda_ms(torch, lambda: torch.cdist(cano, vv).amin(-1)),
+            "P": n_c, "V": vv.shape[0], "bit_equal": exact, "search": cnt,
+            "ms": cuda_ms(torch, lambda: point_mesh.min_vertex_dist_fast(pp, vv, oo)),
+            "library_ms": cuda_ms(torch, lambda: torch.cdist(pp, vv).amin(-1)),
             # one distance a point is the least an exact search evaluates
             **bound(0, n_c * 9.0, nbytes),
             "brute_force_bound_ms": bound(0, n_c * vv.shape[0] * 8.0, nbytes)["bound_ms"]}
@@ -580,9 +664,9 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     obj = by_buffer["object"]
     record("min_vertex_dist", max(errs), obj["ms"],
            cuda_ms(torch, lambda: point_mesh.min_vertex_dist(cano, bound_v)),
-           f"P={n_c} V={bound_v.shape[0]} (the object's buffer; also the hand and the empty "
-           f"state)", {k: obj[k] for k in ("bound_ms", "bound_by", "tc_flops", "f32_flops",
-                                           "bytes")},
+           f"P={cano.shape[0]} V={bound_v.shape[0]} (the object's buffer; also the hand, the "
+           f"empty state and the object's mesh state)",
+           {k: obj[k] for k in ("bound_ms", "bound_by", "tc_flops", "f32_flops", "bytes")},
            search=obj["search"], buffers=by_buffer, library_ms=obj["library_ms"],
            library_call="torch.cdist(pts, verts).amin(-1): two calls",
            brute_force_bound_ms=obj["brute_force_bound_ms"])
@@ -1276,10 +1360,10 @@ def render_agreement(torch, seq, args, cfg, dev) -> None:
             raise AssertionError(f"render {k}: card and CPU disagree")
 
 
-def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
+def slice_run(torch, seq, args, cfg, dev, steps: int) -> tuple:
     """Phase 5, one run: ``run_training`` from counters at 0; checks the
     losses and that this path launched each of its kernels.  Returns the
-    launch counts."""
+    launch counts and what run_training returned."""
     from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
     from hold_tpu_torch.train import run_training
 
@@ -1325,7 +1409,144 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> dict:
     print(f"  rays_per_s {rays / step_s:.1f} ({rays} rays per step, steps 1..{steps - 1})")
     print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)", flush=True)
     train_profile(torch, seq, args, scene, params, mesh_state, dev, summ)
-    return launches
+    return launches, (params, scene, mesh_state, tracker)
+
+
+@contextlib.contextmanager
+def timed_sdf_queries():
+    """While open, the SDF queries of canonical meshing are timed: yields
+    [seconds, calls, points], the host clock around each batch of queries
+    (they end in a copy to the host, so the device's work is in it)."""
+    from hold_tpu_torch.meshing import cano
+
+    spent = [0.0, 0, 0]
+    make = cano.make_node_sdf_fn
+
+    def timed_make(*a, **k):
+        fn = make(*a, **k)
+
+        def timed(pts):
+            t0 = time.perf_counter()
+            out = fn(pts)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            spent[2] += pts.shape[0]
+            return out
+
+        return timed
+
+    cano.make_node_sdf_fn = timed_make
+    try:
+        yield spent
+    finally:
+        cano.make_node_sdf_fn = make
+
+
+def meshing_checks(torch, seq, args, dev, fused) -> None:
+    """Phase 5, after the fused run: the run's own meshing (at epoch 3) must
+    have written the object's mesh and left a valid object state.  Then its
+    parameters (after its profiled steps) are meshed again at the
+    reference's resolutions (hand 64, object 32 with res_up 2), timed: wall,
+    the SDF queries on the device, MISE on the host (the rest).  The
+    object's state from that mesh must be
+    valid and give non-zero object sparse and eikonal terms on a batch,
+    where the empty state gives zero; 3 training steps with it and 3 with
+    the empty state must have finite losses, and their grad_ms are printed
+    side by side."""
+    import glob
+
+    import numpy as np
+
+    from hold_tpu_torch.meshing.cano import mesh_hand_cano, mesh_object_cano
+    from hold_tpu_torch.models.holdnet import (
+        empty_object_mesh_state, holdnet_forward, object_mesh_state_from_mesh, sample_all_z,
+        sample_step_draws,
+    )
+    from hold_tpu_torch.models.losses import eikonal_loss, opacity_sparse_loss
+    from hold_tpu_torch.train import (
+        batch_to_device, make_train_step, meshing_snapshot, optimizer_for,
+    )
+    from hold_tpu_torch.utils.logger import StepTimer
+
+    params, scene, run_state, tracker = fused
+    written = sorted(glob.glob(os.path.join(tracker.log_dir, "mesh_cano", "mesh_cano_*.obj")))
+    misc = sorted(glob.glob(os.path.join(tracker.log_dir, "misc", "*.npy")))
+    print(f"  the fused run's meshing: {[os.path.basename(p) for p in written]}, misc "
+          f"{[os.path.basename(p) for p in misc]}; its object state valid "
+          f"{float(run_state['valid']):.0f}", flush=True)
+    if not any("_object_" in p for p in written) or not misc or float(run_state["valid"]) != 1:
+        raise AssertionError("the fused run's meshing wrote no object mesh or left no valid "
+                             "object state")
+
+    snap = meshing_snapshot(params, scene)
+    meshes = {}
+    for nid in scene.node_ids:
+        with timed_sdf_queries() as spent:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = (mesh_object_cano(snap[nid], scene) if nid == "object"
+                 else mesh_hand_cano(snap[nid], scene, nid))
+            wall = time.perf_counter() - t0
+        shown = "no surface" if m is None else (f"{m.vertices.shape[0]} vertices, "
+                                                f"{m.faces.shape[0]} faces")
+        print(f"  meshing {nid}: wall {wall * 1e3:.3f} ms = SDF queries on the device "
+              f"{spent[0] * 1e3:.3f} ms ({spent[2]} points in {spent[1]} batches) + MISE on "
+              f"the host {(wall - spent[0]) * 1e3:.3f} ms; {shown}", flush=True)
+        meshes[nid] = m
+    obj = meshes["object"]
+    if obj is None or obj.faces.shape[0] == 0:
+        raise AssertionError("the object's field gave no mesh")
+    t0 = time.perf_counter()
+    state = object_mesh_state_from_mesh(obj.vertices, obj.faces, dev)
+    kept = int((state["bound_centers"][:, 0] < 1e4).sum())
+    print(f"  object mesh state: valid {float(state['valid']):.0f}, {kept} bound rows of "
+          f"{state['bound_centers'].shape[0]}, h_margin {float(state['h_margin']):.5f} "
+          f"({(time.perf_counter() - t0) * 1e3:.3f} ms)", flush=True)
+    if float(state["valid"]) != 1.0:
+        raise AssertionError("the object's mesh gave an invalid mesh state")
+
+    states = {"valid 1": state, "valid 0": empty_object_mesh_state(dev)}
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(9), BATCH_SIZE, 1,
+                                                   RAYS_PER_FRAME), dev)
+    B, P = batch["uv"].shape[:2]
+    step = STEPS
+    z = sample_all_z(params, scene, batch, torch.Generator(dev).manual_seed(9), step, step)
+    for name, st in states.items():
+        draws = sample_step_draws(scene, B, P, torch.Generator(dev).manual_seed(9))
+        out = holdnet_forward(params, scene, batch, st, draws, step, step, z_vals_dict=z)
+        off = out["object.index_off_surface"]
+        sparse = float((out["object.active"]
+                        * opacity_sparse_loss(out["object.mask_prob"], off)).detach())
+        eik = float((out["object.active"] * eikonal_loss(out["object.grad_theta"])).detach())
+        ok = (sparse > 0 and eik > 0) if st is state else (sparse == 0 and eik == 0)
+        print(f"  {name}: the object's sparse term {sparse:.6e} ({int(off.sum())} of "
+              f"{off.numel()} rays off its surface), eikonal term {eik:.6e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name}: the object's sparse and eikonal terms are not "
+                                 f"{'on' if st is state else 'off'}")
+        del out
+
+    opt = optimizer_for(args, params)
+    gen = torch.Generator(dev).manual_seed(11)
+    rng = np.random.RandomState(11)
+    for name, st in states.items():
+        timer = StepTimer()
+        train_step = make_train_step(scene, opt, timer)
+        for i in range(3):
+            batch = batch_to_device(seq.sample_tempo_batch(rng, BATCH_SIZE, 1, RAYS_PER_FRAME),
+                                    dev)
+            aux = train_step(params, batch, st, gen, step + i, step + i)
+            bad = {k: float(v) for k, v in aux.items() if not math.isfinite(float(v))}
+            if bad:
+                raise AssertionError(f"{name}: non-finite losses {bad}")
+            if i == 0:  # the means leave out the first step
+                timer.totals.clear()
+                timer.counts.clear()
+        summ = timer.summary()
+        print(f"  3 steps with the object state at {name}: loss {float(aux['loss']):.5f}, "
+              f"grad_ms {summ['grad'] * 1e3:.3f}, sampler_ms {summ['sampler'] * 1e3:.3f} "
+              f"(steps 2-3)", flush=True)
 
 
 # kernel families of the device time: (family, substrings of kernel names)
@@ -1539,6 +1760,12 @@ def main() -> int:
         elif "registers" in line or "spill" in line:
             print(f"  {kernel}: {line.split('info    :')[-1].strip()}")
 
+    from hold_tpu_torch.meshing import mise
+
+    t0 = time.perf_counter()
+    print(f"  {mise._build_lib()}: {time.perf_counter() - t0:.1f} s (g++, or found built)",
+          flush=True)
+
     from hold_tpu_torch.data.dataset import SequenceData
     from hold_tpu_torch.data.synthetic import generate_sequence
 
@@ -1562,14 +1789,22 @@ def main() -> int:
           f"{LAYER_STEPS} with the chunked shade")
     from hold_tpu_torch.utils.config import Cfg
 
+    # the defaults, with meshing: two steps an epoch, so that the cadence
+    # meshes at epoch 3 after the last step, on its worker thread
+    fused_launches, fused = slice_run(torch, seq, Cfg({**args, "no_meshing": False,
+                                                       "tempo_len": 2 * BATCH_SIZE}),
+                                      cfg, dev, STEPS)
+    print("  -- canonical meshing and the object's mesh state", flush=True)
+    meshing_checks(torch, seq, args, dev, fused)
+    del fused
     launches = {
-        "fused": slice_run(torch, seq, args, cfg, dev, STEPS),
+        "fused": fused_launches,
         "layer": slice_run(torch, seq, Cfg({**args, "no_fused_sampler": True,
                                             "exp_key": "chip_smoke_layer"}),
-                           cfg, dev, LAYER_STEPS),
+                           cfg, dev, LAYER_STEPS)[0],
         "chunked": slice_run(torch, seq, Cfg({**args, "no_fused_train": True,
                                               "exp_key": "chip_smoke_chunked"}),
-                             cfg, dev, LAYER_STEPS),
+                             cfg, dev, LAYER_STEPS)[0],
     }
     # the chunked shade once more with every chunk's graph kept, for its peak
     # memory beside the recomputing default's
@@ -1592,8 +1827,8 @@ def main() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "shape")},
             **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
-                                 "normal_p99", "split_ms", "search", "support", "buffers",
-                                 "brute_force_bound_ms", "library_call",
+                                 "normal_p99", "split_ms", "wrapper_ms", "search", "support",
+                                 "buffers", "brute_force_bound_ms", "library_call",
                                  "library_note") if k in r},
         })
     print(smi)

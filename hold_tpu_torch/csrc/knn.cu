@@ -127,115 +127,213 @@ knn_blend_kernel(const float* __restrict__ pts, const float* __restrict__ verts,
     outlier[q] = sqrtf(fminf(dmin, CLAMP)) > max_dist ? 1 : 0;
 }
 
-// Block reduction of sum_points G[c] * wb[j] into dtfs[b, j, c/4, c%4]
-// (dtfs holds 16 floats per joint).  Rows are padded to BLOCK + 1 floats so
-// threads reading different rows at one column hit different banks.
-template <int NC>
-__device__ __forceinline__ void reduce_to_dtfs(const float* G, const float* W, int J,
-                                               float (*sG)[BLOCK + 1],
-                                               float (*sW)[BLOCK + 1],
-                                               const int* col_of, float* dtfs_b) {
-    const int t = threadIdx.x;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) sG[c][t] = G[c];
-#pragma unroll
-    for (int j = 0; j < JMAX; ++j) sW[j][t] = W[j];
+// ---------------------------------------------------------------------------
+// Backward of rows 2-3: the per-frame sums to the bone transforms
+// ---------------------------------------------------------------------------
+//
+// Both VJPs end in dtfs[b, j, r, :] = sum over the frame's points of
+// wb[p, j] * T[p, r, :] for rows r = 0..2 of each 4x4 (row 3 is zero), with
+// per-point terms T from g and the forward's J^-1 (and x_c).  The TPU
+// kernels carried that sum across their sequential grid, in a fixed order.
+// Here the sum runs in a fixed order too, with no atomics and no memset:
+//
+// 1. knn_tfs_bwd_kernel: a CTA per range of BWD_RANGE consecutive points of
+//    one frame (grid (ranges, B): 490 CTAs at a training step's shape, all
+//    resident at once, ~4 an SM).  Its range's records are contiguous, so
+//    the CTA stages all of them at once, BWD_TILES tiles of BWD_TILE points,
+//    by cp.async (16 bytes a copy where aligned) into shared memory: every
+//    byte of the range is in flight before the first tile is used.  A tile's
+//    per-point terms are formed once a point (u = A^-T g; or dA = -A^-T G
+//    A^-T) into shared memory, from which row 2's dpts = u is written
+//    coalesced.  Then thread (grp, j) adds wb[p, j] times the point's terms
+//    (12, or 9) over the tile's points p = grp, grp + NG, ... (NG =
+//    BWD_THREADS / J groups), tile after tile; the groups' sums are added in
+//    group order, and the CTA writes its range's partial (J x 12, or J x 9)
+//    to a workspace.
+// 2. knn_tfs_bwd_final_kernel: a CTA per frame adds the ranges' partials in
+//    range order and writes every entry of each 4x4, zeros included.
+//
+// Each product and sum is one rounded f32 operation (__fmul_rn /
+// __fadd_rn: no contraction to FMA), so the result is the same bit for bit
+// from call to call and equals ops/knn.py's warp_bwd_fixed_order /
+// jinv_bwd_fixed_order, which repeat this order in PyTorch.  Bound: the
+// bytes, each record read once (124 or 136 B a point) and dpts written
+// once; ~50 f32 operations a point are far below them.
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_TILE = 128;                     // points staged at a time
+constexpr int BWD_TILES = 2;                      // tiles a range, all in flight at once
+constexpr int BWD_RANGE = BWD_TILE * BWD_TILES;   // points a CTA
+
+// A tile's staged records (floats, at BWD_TILE points each): g (3 or 9
+// a point), J^-1 (9), for row 2 x_c (3), wb (JMAX room for J).
+template <bool JINV>
+struct BwdLayout {
+    static constexpr int GW = JINV ? 9 : 3;        // g's floats a point
+    static constexpr int XC = GW + 9;              // x_c's offset (row 2)
+    static constexpr int WB = XC + (JINV ? 0 : 3); // wb's offset
+    static constexpr int TILE = (WB + JMAX) * BWD_TILE;
+    static constexpr int AW = JINV ? 9 : 3;        // per-point terms: dA, or u
+    static constexpr int NC = JINV ? 3 : 4;        // columns of a 4x4 row reached
+    static constexpr int NS = 3 * NC;              // sums a joint
+    // floats: the staged tiles, the per-point terms, the threads' sums
+    static constexpr int SMEM = BWD_TILES * TILE + AW * BWD_TILE + BWD_THREADS * NS;
+};
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes16) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    if (bytes16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// n contiguous floats from global to shared memory, 16 bytes a copy when
+// the source allows it (the destination is 16-byte aligned by layout)
+__device__ __forceinline__ void stage_floats(float* dst, const float* src, int n) {
+    if ((reinterpret_cast<size_t>(src) & 15) == 0 && (n & 3) == 0) {
+        for (int k = 4 * threadIdx.x; k < n; k += 4 * BWD_THREADS) cp_async(dst + k, src + k, 1);
+    } else {
+        for (int k = threadIdx.x; k < n; k += BWD_THREADS) cp_async(dst + k, src + k, 0);
+    }
+}
+
+// wait until at most `pending` (0 or 1) of this thread's copy groups are in
+// flight, then for every thread of the CTA to have done so
+static_assert(BWD_TILES <= 2, "wait_tiles waits with at most one group in flight");
+__device__ __forceinline__ void wait_tiles(int pending) {
+    if (pending == 0)
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    else
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    for (int idx = t; idx < NC * J; idx += BLOCK) {
-        const int c = idx / J, j = idx - (idx / J) * J;
-        float s = 0.0f;
-        for (int k = 0; k < BLOCK; ++k) s += sG[c][k] * sW[j][k];
-        atomicAdd(dtfs_b + j * 16 + col_of[c], s);
+}
+
+// Replaces the backwards of knn_inverse_warp_diff (knn.py:581) [JINV=false]:
+// u = A^-T g, dpts = u, dtfs rows = -sum wb u (x_c, 1); and of
+// knn_jacobian_inverse (knn.py:781) [JINV=true]: dA = -A^-T G A^-T, dtfs
+// rotation block = sum wb dA (no gradient to the points).  Writes the
+// range's partial to part (B, ranges, J, NS), row 2's already negated.
+template <bool JINV>
+__global__ void __launch_bounds__(BWD_THREADS)
+knn_tfs_bwd_kernel(const float* __restrict__ g, const float* __restrict__ inv,
+                   const float* __restrict__ xc, const float* __restrict__ wb,
+                   float* __restrict__ dpts, float* __restrict__ part, int P, int J) {
+    using L = BwdLayout<JINV>;
+    extern __shared__ __align__(16) float sm[];
+    float* s_a = sm + BWD_TILES * L::TILE;
+    float* s_sum = s_a + L::AW * BWD_TILE;
+    const int b = blockIdx.y, t = threadIdx.x;
+    const int start = blockIdx.x * BWD_RANGE;
+    const int n_range = min(BWD_RANGE, P - start);
+    const int n_tiles = (n_range + BWD_TILE - 1) / BWD_TILE;
+    const size_t q0 = (size_t)b * P + start;
+    for (int k = 0; k < n_tiles; ++k) {
+        const int n = min(BWD_TILE, n_range - k * BWD_TILE);
+        const size_t q = q0 + (size_t)k * BWD_TILE;
+        float* buf = sm + k * L::TILE;
+        stage_floats(buf, g + q * L::GW, L::GW * n);
+        stage_floats(buf + L::GW * BWD_TILE, inv + q * 9, 9 * n);
+        if constexpr (!JINV) stage_floats(buf + L::XC * BWD_TILE, xc + q * 3, 3 * n);
+        stage_floats(buf + L::WB * BWD_TILE, wb + q * J, J * n);
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+
+    const int NG = BWD_THREADS / J, grp = t / J, j = t - grp * J;
+    float acc[L::NS];  // row r's column c at r * NC + c
+#pragma unroll
+    for (int e = 0; e < L::NS; ++e) acc[e] = 0.0f;
+    for (int k = 0; k < n_tiles; ++k) {
+        wait_tiles(n_tiles - 1 - k);  // tile k has landed; the last tile's sums are done
+        const int n = min(BWD_TILE, n_range - k * BWD_TILE);
+        const float* buf = sm + k * L::TILE;
+        if (t < n) {
+            const float* m = buf + L::GW * BWD_TILE + 9 * t;  // J^-1, row-major
+            const float* gp = buf + L::GW * t;
+            if constexpr (!JINV) {
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+                    s_a[3 * t + r] = __fadd_rn(__fadd_rn(__fmul_rn(m[r], gp[0]),
+                                                         __fmul_rn(m[3 + r], gp[1])),
+                                               __fmul_rn(m[6 + r], gp[2]));
+            } else {
+                // Pk[r][c] = sum_s m[s][r] G[s][c];  dA[r][c] = -sum_s Pk[r][s] m[c][s]
+                float pk[9];
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c)
+                        pk[3 * r + c] = __fadd_rn(__fadd_rn(__fmul_rn(m[r], gp[c]),
+                                                            __fmul_rn(m[3 + r], gp[3 + c])),
+                                                  __fmul_rn(m[6 + r], gp[6 + c]));
+#pragma unroll
+                for (int r = 0; r < 3; ++r)
+#pragma unroll
+                    for (int c = 0; c < 3; ++c)
+                        s_a[9 * t + 3 * r + c] = -__fadd_rn(
+                            __fadd_rn(__fmul_rn(pk[3 * r], m[3 * c]),
+                                      __fmul_rn(pk[3 * r + 1], m[3 * c + 1])),
+                            __fmul_rn(pk[3 * r + 2], m[3 * c + 2]));
+            }
+        }
+        __syncthreads();
+        if constexpr (!JINV) {  // dpts = u, coalesced
+            float* out = dpts + (q0 + (size_t)k * BWD_TILE) * 3;
+            for (int e = t; e < 3 * n; e += BWD_THREADS) out[e] = s_a[e];
+        }
+        if (grp < NG) {
+            const float* w = buf + L::WB * BWD_TILE + j;
+            for (int p = grp; p < n; p += NG) {
+                const float wj = w[p * J];
+                if constexpr (!JINV) {
+                    const float* x = buf + L::XC * BWD_TILE + 3 * p;
+                    const float x0 = x[0], x1 = x[1], x2 = x[2];
+#pragma unroll
+                    for (int r = 0; r < 3; ++r) {
+                        const float wu = __fmul_rn(wj, s_a[3 * p + r]);
+                        acc[4 * r] = __fadd_rn(acc[4 * r], __fmul_rn(wu, x0));
+                        acc[4 * r + 1] = __fadd_rn(acc[4 * r + 1], __fmul_rn(wu, x1));
+                        acc[4 * r + 2] = __fadd_rn(acc[4 * r + 2], __fmul_rn(wu, x2));
+                        acc[4 * r + 3] = __fadd_rn(acc[4 * r + 3], wu);
+                    }
+                } else {
+                    const float* a = s_a + 9 * p;
+#pragma unroll
+                    for (int e = 0; e < 9; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(wj, a[e]));
+                }
+            }
+        }
+    }
+    if (grp < NG) {
+#pragma unroll
+        for (int e = 0; e < L::NS; ++e) s_sum[t * L::NS + e] = acc[e];
+    }
+    __syncthreads();
+    if (t < J * L::NS) {  // thread (j, e): the groups' sums in group order
+        float s = s_sum[t];
+        for (int k = 1; k < NG; ++k) s = __fadd_rn(s, s_sum[k * J * L::NS + t]);
+        part[((size_t)b * gridDim.x + blockIdx.x) * J * L::NS + t] = JINV ? s : -s;
     }
 }
 
-// Replaces the backward of knn_inverse_warp_diff (knn.py:581):
-// u = A^-T g, dpts = u, dA = -u x_c^T, dt = -u, dtfs = sum_points wb (x) [dA|dt].
-// Bound: ~25 loads/stores per point plus the (12 x J) per-block reduction;
-// the TPU kernel carried that sum across its sequential grid, here each block
-// reduces its 128 points in shared memory and adds one partial per (c, j)
-// with atomicAdd (order varies from run to run: sums agree to fp32 rounding).
-__global__ void __launch_bounds__(BLOCK)
-knn_warp_bwd_kernel(const float* __restrict__ g, const float* __restrict__ inv,
-                    const float* __restrict__ xc, const float* __restrict__ wb,
-                    float* __restrict__ dpts, float* __restrict__ dtfs, int P, int J) {
-    __shared__ float sG[12][BLOCK + 1];
-    __shared__ float sW[JMAX][BLOCK + 1];
-    __shared__ int col_of[12];
-    const int b = blockIdx.y;
-    const int p = blockIdx.x * BLOCK + threadIdx.x;
-    if (threadIdx.x < 12) col_of[threadIdx.x] = threadIdx.x;  // rows 0..2 of the 4x4
-    float G[12], W[JMAX];
-#pragma unroll
-    for (int c = 0; c < 12; ++c) G[c] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < JMAX; ++j) W[j] = 0.0f;
-    if (p < P) {
-        const size_t q = (size_t)b * P + p;
-        float m[9], u[3];
-#pragma unroll
-        for (int c = 0; c < 9; ++c) m[c] = inv[9 * q + c];
-        const float g0 = g[3 * q], g1 = g[3 * q + 1], g2 = g[3 * q + 2];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) u[i] = m[i] * g0 + m[3 + i] * g1 + m[6 + i] * g2;
-        const float x0 = xc[3 * q], x1 = xc[3 * q + 1], x2 = xc[3 * q + 2];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            dpts[3 * q + i] = u[i];
-            G[4 * i] = -u[i] * x0;
-            G[4 * i + 1] = -u[i] * x1;
-            G[4 * i + 2] = -u[i] * x2;
-            G[4 * i + 3] = -u[i];
-        }
-#pragma unroll
-        for (int j = 0; j < JMAX; ++j)
-            if (j < J) W[j] = wb[q * J + j];
+// The ranges' partials (B, C, J, NS) added in range order into dtfs
+// (B, J, 4, 4): a CTA per frame, a thread per entry (J <= 16), every entry
+// written, those the VJP does not reach as zeros (row 3 of each 4x4; for
+// row 3's VJP also column 3).
+template <bool JINV>
+__global__ void __launch_bounds__(JMAX * 16)
+knn_tfs_bwd_final_kernel(const float* __restrict__ part, float* __restrict__ dtfs, int C,
+                         int J) {
+    using L = BwdLayout<JINV>;
+    const int b = blockIdx.x, t = threadIdx.x;
+    const int j = t >> 4, r = (t >> 2) & 3, c = t & 3;
+    if (j >= J) return;
+    float s = 0.0f;
+    if (r < 3 && c < L::NC) {
+        const float* src = part + ((size_t)b * C * J + j) * L::NS + r * L::NC + c;
+        for (int k = 0; k < C; ++k) s = __fadd_rn(s, src[(size_t)k * J * L::NS]);
     }
-    reduce_to_dtfs<12>(G, W, J, sG, sW, col_of, dtfs + (size_t)b * J * 16);
-}
-
-// Replaces the backward of knn_jacobian_inverse (knn.py:781):
-// dA = -A^-T G A^-T, blended to the bone rotations; no gradient to the
-// points (detached by contract).  Bound and reduction as knn_warp_bwd_kernel.
-__global__ void __launch_bounds__(BLOCK)
-knn_jinv_bwd_kernel(const float* __restrict__ g, const float* __restrict__ inv,
-                    const float* __restrict__ wb, float* __restrict__ dtfs, int P, int J) {
-    __shared__ float sG[9][BLOCK + 1];
-    __shared__ float sW[JMAX][BLOCK + 1];
-    __shared__ int col_of[9];
-    const int b = blockIdx.y;
-    const int p = blockIdx.x * BLOCK + threadIdx.x;
-    if (threadIdx.x < 9) col_of[threadIdx.x] = 4 * (threadIdx.x / 3) + threadIdx.x % 3;
-    float dA[9], W[JMAX];
-#pragma unroll
-    for (int c = 0; c < 9; ++c) dA[c] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < JMAX; ++j) W[j] = 0.0f;
-    if (p < P) {
-        const size_t q = (size_t)b * P + p;
-        float m[9], G[9], Pk[9];
-#pragma unroll
-        for (int c = 0; c < 9; ++c) {
-            m[c] = inv[9 * q + c];
-            G[c] = g[9 * q + c];
-        }
-        // P_ik = sum_j inv[3j+i] G[3j+k];  dA_im = -sum_k P_ik inv[3m+k]
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int k = 0; k < 3; ++k)
-                Pk[3 * i + k] = m[i] * G[k] + m[3 + i] * G[3 + k] + m[6 + i] * G[6 + k];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-            for (int mm = 0; mm < 3; ++mm)
-                dA[3 * i + mm] = -(Pk[3 * i] * m[3 * mm] + Pk[3 * i + 1] * m[3 * mm + 1] +
-                                   Pk[3 * i + 2] * m[3 * mm + 2]);
-#pragma unroll
-        for (int j = 0; j < JMAX; ++j)
-            if (j < J) W[j] = wb[q * J + j];
-    }
-    reduce_to_dtfs<9>(dA, W, J, sG, sW, col_of, dtfs + (size_t)b * J * 16);
+    dtfs[((size_t)b * J + j) * 16 + (t & 15)] = s;
 }
 
 template <typename Kern>
@@ -243,6 +341,27 @@ cudaError_t allow_smem(Kern kern, size_t smem) {
     if (smem <= 48 * 1024) return cudaSuccess;
     return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
+}
+
+// rows 2-3 backward: the ranges' partials, then their sum; ranges = ceil(P
+// / BWD_RANGE) (ops/knn.py bwd_ranges), part holds B x ranges x J x NS floats
+template <bool JINV>
+cudaError_t tfs_bwd(const void* g, const void* inv, const void* xc, const void* wb, void* dpts,
+                    void* part, void* dtfs, int B, int P, int J, cudaStream_t s) {
+    if (B == 0) return cudaSuccess;
+    const int C = (P + BWD_RANGE - 1) / BWD_RANGE;
+    if (C > 0) {
+        const size_t smem = BwdLayout<JINV>::SMEM * sizeof(float);
+        cudaError_t err = allow_smem(knn_tfs_bwd_kernel<JINV>, smem);
+        if (err != cudaSuccess) return err;
+        knn_tfs_bwd_kernel<JINV><<<dim3(C, B), BWD_THREADS, smem, s>>>(
+            (const float*)g, (const float*)inv, (const float*)xc, (const float*)wb,
+            (float*)dpts, (float*)part, P, J);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    knn_tfs_bwd_final_kernel<JINV><<<B, JMAX * 16, 0, s>>>((const float*)part, (float*)dtfs, C,
+                                                           J);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -303,17 +422,11 @@ int hold_knn_blend(const void* pts, const void* verts, const void* w, const void
     return cudaGetLastError();
 }
 
-// g (B,P,3), inv (B,P,9), xc (B,P,3), wb (B,P,J) -> dpts (B,P,3), dtfs (B,J,4,4).
+// g (B,P,3), inv (B,P,9), xc (B,P,3), wb (B,P,J) -> dpts (B,P,3), dtfs
+// (B,J,4,4); part: a workspace of B x ceil(P / 256) x J x 12 floats.
 int hold_knn_warp_bwd(const void* g, const void* inv, const void* xc, const void* wb,
-                      void* dpts, void* dtfs, int B, int P, int J, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(dtfs, 0, (size_t)B * J * 16 * sizeof(float), s);
-    if (err != cudaSuccess || P == 0 || B == 0) return err;
-    const dim3 grid((P + BLOCK - 1) / BLOCK, B);
-    knn_warp_bwd_kernel<<<grid, BLOCK, 0, s>>>((const float*)g, (const float*)inv,
-                                               (const float*)xc, (const float*)wb,
-                                               (float*)dpts, (float*)dtfs, P, J);
-    return cudaGetLastError();
+                      void* dpts, void* part, void* dtfs, int B, int P, int J, void* stream) {
+    return tfs_bwd<false>(g, inv, xc, wb, dpts, part, dtfs, B, P, J, (cudaStream_t)stream);
 }
 
 // pts (B,P,3), verts (B,V,3), w (B,V,J), tfs (B,J,4,4), order (V,) int32
@@ -333,16 +446,12 @@ int hold_knn_jinv_fwd(const void* pts, const void* verts, const void* w, const v
     return cudaGetLastError();
 }
 
-// g (B,P,9), inv (B,P,9), wb (B,P,J) -> dtfs (B,J,4,4) (rotation block only).
-int hold_knn_jinv_bwd(const void* g, const void* inv, const void* wb, void* dtfs, int B,
-                      int P, int J, void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    cudaError_t err = cudaMemsetAsync(dtfs, 0, (size_t)B * J * 16 * sizeof(float), s);
-    if (err != cudaSuccess || P == 0 || B == 0) return err;
-    const dim3 grid((P + BLOCK - 1) / BLOCK, B);
-    knn_jinv_bwd_kernel<<<grid, BLOCK, 0, s>>>((const float*)g, (const float*)inv,
-                                               (const float*)wb, (float*)dtfs, P, J);
-    return cudaGetLastError();
+// g (B,P,9), inv (B,P,9), wb (B,P,J) -> dtfs (B,J,4,4) (rotation block
+// only); part: a workspace of B x ceil(P / 256) x J x 9 floats.
+int hold_knn_jinv_bwd(const void* g, const void* inv, const void* wb, void* part, void* dtfs,
+                      int B, int P, int J, void* stream) {
+    return tfs_bwd<true>(g, inv, nullptr, wb, nullptr, part, dtfs, B, P, J,
+                         (cudaStream_t)stream);
 }
 
 }  // extern "C"

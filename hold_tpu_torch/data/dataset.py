@@ -64,6 +64,7 @@ class SequenceData:
         self.extrinsics_all = np.stack(extr)
         self.scale = float(1.0 / scale_mats[0][0, 0])
         self.hand_ids = [k for k in ("right", "left") if k in self.entities]
+        self.img_paths: list = []  # the frames' files, for a sequence read from disk
 
     @classmethod
     def from_build_dir(cls, case: str, data_root: str = "./data", num_sample: int = 128):
@@ -83,7 +84,9 @@ class SequenceData:
             ])
         else:
             masks = np.zeros(images.shape[:3], np.uint8)
-        return cls(images, masks, data, num_sample=num_sample)
+        seq = cls(images, masks, data, num_sample=num_sample)
+        seq.img_paths = img_paths
+        return seq
 
     def load_frame(self, idx: int):
         """(rgb (H,W,3) float32 in [0,1], mask (H,W) float32 grey levels)."""

@@ -12,8 +12,10 @@ operator) lives in a ``Scene``; everything trainable is in the params tree
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from ..mano.server import build_mano_server
@@ -63,6 +65,7 @@ from .specs import CLASS_IDS, MANO_SPECS, OBJECT_SPECS, TIME_CODE_DIM
 
 OBJ_CENTERS = 16384
 OBJ_BOUND_V = 8192
+OBJ_MESH_MAX_F = 16384  # faces of the object's mesh before it is decimated
 N_SURF = 256  # surface / eikonal samples per frame
 
 
@@ -213,6 +216,49 @@ def empty_object_mesh_state(device) -> dict:
         "sigma_xyz": torch.ones((3,), device=device),
         "h_margin": torch.tensor(0.0, device=device),
         "valid": torch.tensor(0.0, device=device),
+    }
+
+
+def object_mesh_state_from_mesh(vertices: np.ndarray, faces: np.ndarray, device) -> dict:
+    """The object's mesh state from its canonical mesh, on ``device``.
+
+    The off-surface bound needs every vertex of the mesh, so a mesh whose
+    vertices do not fit the OBJ_BOUND_V rows is decimated, the face target
+    walked down (vertex clustering can overshoot it) for 8 rounds; if it
+    still does not fit, the state is the invalid one (``valid`` = 0 turns
+    the bound and the sparse / eikonal terms off), never a truncated vertex
+    set, which would loosen the bound.  ``centers``: every vertex, tiled
+    cyclically to OBJ_CENTERS rows (eikonal sampling); ``bound_centers``:
+    the vertices once, then far padding.  The JAX package's ``tri`` buffer
+    (the faces' corners) is read by nothing in either package and is left
+    out."""
+    from ..utils import mesh as mesh_utils
+
+    if faces.shape[0] > OBJ_MESH_MAX_F or vertices.shape[0] > OBJ_BOUND_V:
+        target = OBJ_MESH_MAX_F // 2
+        for _ in range(8):
+            m = mesh_utils.decimate_mesh(vertices, faces, target)
+            if m.vertices.shape[0] <= OBJ_BOUND_V:
+                break
+            target = max(int(target * 0.55), 500)
+        vertices, faces = m.vertices, m.faces
+        if vertices.shape[0] > OBJ_BOUND_V:
+            logging.getLogger("hold_tpu_torch").warning(
+                "object mesh kept %d verts after 8 decimation rounds (limit %d); disabling the "
+                "off-surface vertex bound", vertices.shape[0], OBJ_BOUND_V)
+            return empty_object_mesh_state(device)
+    vertices = np.asarray(vertices, np.float32)
+    reps = int(np.ceil(OBJ_CENTERS / max(vertices.shape[0], 1)))
+    bound = np.full((OBJ_BOUND_V, 3), 1e4, np.float32)
+    bound[: vertices.shape[0]] = vertices
+    h = face_circumradius_bound(torch.as_tensor(vertices),
+                                torch.as_tensor(np.asarray(faces, np.int64)))
+    return {
+        "centers": torch.as_tensor(np.tile(vertices, (reps, 1))[:OBJ_CENTERS], device=device),
+        "bound_centers": torch.as_tensor(bound, device=device),
+        "sigma_xyz": torch.as_tensor(np.abs(vertices).max(axis=0) * 1.1, device=device),
+        "h_margin": h.to(device),
+        "valid": torch.tensor(1.0, device=device),
     }
 
 

@@ -33,9 +33,9 @@ _F = ctypes.c_float
 # every entry point returns cudaError_t as int
 _SIGNATURES = {
     "hold_knn_warp_fwd": [_P] * 9 + [_I] * 5 + [_F, _P, _P],
-    "hold_knn_warp_bwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "hold_knn_warp_bwd": [_P] * 7 + [_I] * 3 + [_P],
     "hold_knn_jinv_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
-    "hold_knn_jinv_bwd": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "hold_knn_jinv_bwd": [_P] * 5 + [_I] * 3 + [_P],
     "hold_min_vertex_dist": [_P] * 4 + [_I] * 2 + [_P, _P],
     "hold_fused_hand_sdf_z": [_P] * 12 + [_I] * 7 + [_P, _P],
     "hold_fused_object_sdf_z": [_P] * 9 + [_I] * 4 + [_P],

@@ -26,6 +26,10 @@ Four kernels, each with a plain PyTorch version in this module:
 - ``knn_jacobian_inverse``: inverse skinning Jacobian at canonical points;
   closed-form backward (a kernel) for the bone rotations only.
 
+The two backward kernels sum over a frame's points in a fixed order, the
+same from call to call; ``warp_bwd_fixed_order`` and
+``jinv_bwd_fixed_order`` repeat that order in PyTorch.
+
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel from ``csrc/knn.cu`` or raises; it never falls back.
 Each launch adds one to ``LAUNCHES[name]``.
@@ -54,6 +58,10 @@ JMAX = 16
 TILE_V = 32  # vertices a tile of the search
 # a 128-thread CTA's candidate queues: 16 entries (d2, slot) of 8 bytes a lane
 QUEUE_BYTES = 4 * 16 * 32 * 8
+# rows 2-3 backward (csrc/knn.cu knn_tfs_bwd_kernel): a CTA sums a range of
+# BWD_RANGE points of one frame, staged BWD_TILE at a time, over
+# BWD_THREADS // J groups of threads
+BWD_THREADS, BWD_TILE, BWD_RANGE = 256, 128, 256
 
 
 def search_vmax() -> int:
@@ -231,6 +239,82 @@ def jacobian_inverse_plain(pts_c, verts_c, skin_weights, tfs, K=15):
     return inverse_mat3(skinning_jacobian(w, tfs)).reshape(B, P, 9)
 
 
+def bwd_ranges(P: int) -> int:
+    """Point ranges a frame of the backward kernels: one CTA each."""
+    return -(-P // BWD_RANGE)
+
+
+def _range_sums(terms: torch.Tensor) -> torch.Tensor:
+    """(B, P, 3, J, NC) per-point terms -> (B, ranges, 3, J, NC): each
+    range's sum in the kernels' order.  Thread group g of a range's CTA adds
+    the points g, g + NG, ... of each tile (NG = BWD_THREADS // J), tile
+    after tile, each addition rounded; the groups' sums are added in group
+    order.  Zeros pad the ranges and tiles (adding one changes no sum)."""
+    B, P, _, J = terms.shape[:4]
+    rest = terms.shape[2:]
+    ng = BWD_THREADS // J
+    tiles, steps = BWD_RANGE // BWD_TILE, -(-BWD_TILE // ng)
+    n = bwd_ranges(P)
+    x = terms.new_zeros((B, n * BWD_RANGE) + rest)
+    x[:, :P] = terms
+    x = x.reshape((B, n, tiles, BWD_TILE) + rest)
+    x = torch.cat([x, x.new_zeros((B, n, tiles, steps * ng - BWD_TILE) + rest)], dim=3)
+    x = x.reshape((B, n, tiles, steps, ng) + rest)  # tile point s * ng + g
+    acc = x.new_zeros((B, n, ng) + rest)
+    for k in range(tiles):
+        for step in range(steps):
+            acc = acc + x[:, :, k, step]
+    part = acc[:, :, 0]
+    for k in range(1, ng):
+        part = part + acc[:, :, k]
+    return part
+
+
+def _sum_ranges(part: torch.Tensor) -> torch.Tensor:
+    """(B, ranges, ...) -> (B, ...): the ranges' partials added in order, as
+    the final kernel adds them."""
+    out = part.new_zeros(part.shape[:1] + part.shape[2:])
+    for k in range(part.shape[1]):
+        out = out + part[:, k]
+    return out
+
+
+def warp_bwd_fixed_order(g, inv, xc, wb):
+    """Row 2's backward in csrc/knn.cu's order of operations: u = A^-T g,
+    dpts = u, dtfs[b, j, r] = -sum_p (wb[p, j] u_r) (x_c, 1) over each
+    range, then over the ranges.  g (B,P,3), inv (B,P,9), xc (B,P,3), wb
+    (B,P,J) -> (dpts (B,P,3), dtfs (B,J,4,4)).  Every operation is one
+    rounded f32 operation, as in the kernel, so on the card the two agree
+    bit for bit; the autograd of ``inverse_warp_plain`` sums in another
+    order."""
+    B, P, J = wb.shape
+    m = inv.reshape(B, P, 3, 3)
+    u = (m[..., 0, :] * g[..., 0:1] + m[..., 1, :] * g[..., 1:2]) + m[..., 2, :] * g[..., 2:3]
+    wu = wb[:, :, None, :] * u[:, :, :, None]  # (B,P,3,J)
+    terms = torch.cat([wu[..., None] * xc[:, :, None, None, :], wu[..., None]], dim=-1)
+    dtfs = wb.new_zeros((B, J, 4, 4))
+    dtfs[:, :, :3, :] = _sum_ranges(-_range_sums(terms)).permute(0, 2, 1, 3)
+    return u, dtfs
+
+
+def jinv_bwd_fixed_order(g, inv, wb):
+    """Row 3's backward in csrc/knn.cu's order of operations: dA = -A^-T G
+    A^-T a point, dtfs[b, j, :3, :3] = sum_p wb[p, j] dA over each range,
+    then over the ranges.  g (B,P,9), inv (B,P,9), wb (B,P,J) -> dtfs
+    (B,J,4,4), the rotation block only (see ``warp_bwd_fixed_order``)."""
+    B, P, J = wb.shape
+    m, G = inv.reshape(B, P, 3, 3), g.reshape(B, P, 3, 3)
+    # pk[r, c] = sum_s m[s, r] G[s, c];  dA[r, c] = -sum_s pk[r, s] m[c, s]
+    pk = ((m[..., 0, :, None] * G[..., 0, None, :] + m[..., 1, :, None] * G[..., 1, None, :])
+          + m[..., 2, :, None] * G[..., 2, None, :])
+    dA = -((pk[..., :, None, 0] * m[..., None, :, 0] + pk[..., :, None, 1] * m[..., None, :, 1])
+           + pk[..., :, None, 2] * m[..., None, :, 2])
+    terms = wb[:, :, None, :, None] * dA[:, :, :, None, :]  # (B,P,3,J,3)
+    dtfs = wb.new_zeros((B, J, 4, 4))
+    dtfs[:, :, :3, :3] = _sum_ranges(_range_sums(terms)).permute(0, 2, 1, 3)
+    return dtfs
+
+
 # --------------------------------------------------------------------------
 # CUDA launches (csrc/knn.cu)
 # --------------------------------------------------------------------------
@@ -286,15 +370,17 @@ def _warp_fwd_cuda(pts, verts, skin_weights, tfs, K, max_dist, resid, name, orde
 
 
 def _warp_bwd_cuda(g, inv, xc, wb):
-    """Kernel 2 backward: (dpts (B,P,3), dtfs (B,J,4,4))."""
+    """Kernel 2 backward: (dpts (B,P,3), dtfs (B,J,4,4)), summed in the
+    order of ``warp_bwd_fixed_order``."""
     B, P, J = wb.shape
     g = g.contiguous()
     _cuda.check(g, "g_xc", (B, P, 3))
     dpts = torch.empty_like(g)
+    part = torch.empty((B, bwd_ranges(P), J, 12), dtype=torch.float32, device=g.device)
     dtfs = torch.empty((B, J, 4, 4), dtype=torch.float32, device=g.device)
     _cuda.launch(
         "hold_knn_warp_bwd", g.data_ptr(), inv.data_ptr(), xc.data_ptr(),
-        wb.data_ptr(), dpts.data_ptr(), dtfs.data_ptr(), B, P, J,
+        wb.data_ptr(), dpts.data_ptr(), part.data_ptr(), dtfs.data_ptr(), B, P, J,
     )
     LAUNCHES["knn_inverse_warp_diff.bwd"] += 1
     return dpts, dtfs
@@ -315,13 +401,15 @@ def _jinv_fwd_cuda(pts_c, verts_c, skin_weights, tfs, K, order):
 
 
 def _jinv_bwd_cuda(g, inv, wb):
-    """Kernel 3 backward: dtfs (B,J,4,4), rotation block only."""
+    """Kernel 3 backward: dtfs (B,J,4,4), rotation block only, summed in the
+    order of ``jinv_bwd_fixed_order``."""
     B, P, J = wb.shape
     g = g.contiguous()
     _cuda.check(g, "g_jinv", (B, P, 9))
+    part = torch.empty((B, bwd_ranges(P), J, 9), dtype=torch.float32, device=g.device)
     dtfs = torch.empty((B, J, 4, 4), dtype=torch.float32, device=g.device)
     _cuda.launch(
-        "hold_knn_jinv_bwd", g.data_ptr(), inv.data_ptr(), wb.data_ptr(),
+        "hold_knn_jinv_bwd", g.data_ptr(), inv.data_ptr(), wb.data_ptr(), part.data_ptr(),
         dtfs.data_ptr(), B, P, J,
     )
     LAUNCHES["knn_jacobian_inverse.bwd"] += 1

@@ -1,9 +1,11 @@
-"""Experiment loading: what ``train.run_training`` wrote, back as (params, scene).
+"""Experiment files: what ``train.run_training`` writes, and loading it back
+as (params, scene).
 
-A run leaves ``<log_root>/<exp_key>/args.json`` (its arguments) and
+A run leaves ``<log_root>/<exp_key>/args.json`` (its arguments),
 ``checkpoints/last.pt`` (the flat parameter tree, the optimizer state, the
-step count and the model config it was built from).  The JAX package's
-checkpoints and their sidecars are not read.
+step count and the model config it was built from) and, with meshing on,
+a ``misc/<step>.npy`` sidecar for each meshing (``save_misc``).  The JAX
+package's checkpoints are not read.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from __future__ import annotations
 import json
 import os
 
+import numpy as np
 import torch
 
 from ..models.holdnet import build_scene, init_scene_params
@@ -44,3 +47,12 @@ def load_experiment(exp_dir: str, seq, device, fused_render: bool = True):
                                  f"{tuple(t.shape)}")
             t.copy_(saved[k])
     return params, scene
+
+
+def save_misc(log_dir: str, step: int, misc: dict) -> str:
+    """``misc`` (camera, scale, image paths, the canonical meshes) as
+    ``<log_dir>/misc/<step, 9 digits>.npy``, the JAX package's sidecar."""
+    out_p = os.path.join(log_dir, "misc", f"{step:09d}.npy")
+    os.makedirs(os.path.dirname(out_p), exist_ok=True)
+    np.save(out_p, misc)
+    return out_p

@@ -45,6 +45,12 @@ def leaf_params(tree, device=None) -> dict:
     return _walk(tree, (), lambda t, p: t.detach().to(device).requires_grad_(p[-1] not in FROZEN))
 
 
+def detached_copy(tree) -> dict:
+    """A copy of a parameter tree (or subtree) that later in-place updates
+    of the live tensors do not reach."""
+    return _walk(tree, (), lambda t, p: t.detach().clone())
+
+
 def flatten_params(params, prefix: str = "") -> dict[str, torch.Tensor]:
     """{'right/implicit/layers/0/v': tensor, ...} in a stable order."""
     out: dict[str, torch.Tensor] = {}

@@ -1,6 +1,7 @@
-"""MANO wrist sealing and the one-step Loop subdivision operator (the part of
-hold_tpu/utils/mesh.py the port uses, copied so that the port imports nothing
-of the JAX package).
+"""Mesh utilities (the part of hold_tpu/utils/mesh.py the port uses, copied
+so that the port imports nothing of the JAX package): the ``Mesh`` container
+and OBJ I/O, vertex-clustering decimation and face normals (numpy, on the
+host), MANO wrist sealing and the one-step Loop subdivision operator.
 
 Sealing + one Loop iteration on the fixed MANO topology is a linear operator
 on vertex positions, so it is precomputed once as a dense (V_div x 778)
@@ -8,6 +9,8 @@ matrix and applied as a matmul.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -21,6 +24,83 @@ _SEAL_RING = [120, 108, 79, 78, 121, 214, 215, 279, 239, 234, 92, 38, 122, 118, 
 SEAL_FACES_R = np.array(
     [[_SEAL_RING[i], _SEAL_RING[(i + 1) % 16], 778] for i in range(16)], dtype=np.int64
 )
+
+
+
+@dataclass
+class Mesh:
+    vertices: np.ndarray  # (V, 3) float
+    faces: np.ndarray  # (F, 3) int
+
+    def export(self, path: str) -> None:
+        save_obj(path, self.vertices, self.faces)
+
+    @property
+    def bounds(self) -> np.ndarray:
+        return np.stack([self.vertices.min(0), self.vertices.max(0)])
+
+    def copy(self) -> "Mesh":
+        return Mesh(self.vertices.copy(), self.faces.copy())
+
+
+def save_obj(path: str, vertices: np.ndarray, faces: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for v in np.asarray(vertices):
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for face in np.asarray(faces) + 1:
+            f.write(f"f {face[0]} {face[1]} {face[2]}\n")
+
+
+def load_obj(path: str) -> Mesh:
+    verts, faces = [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.strip().split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                faces.append([int(p.split("/")[0]) - 1 for p in parts[1:4]])
+    return Mesh(np.array(verts, np.float32), np.array(faces, np.int64))
+
+
+def decimate_mesh(vertices: np.ndarray, faces: np.ndarray, target_faces: int) -> Mesh:
+    """Vertex-clustering decimation towards ``target_faces`` (replaces
+    pymeshlab at code/src/fitting/utils.py:75-98): vertices clustered on a
+    uniform grid, doubled in resolution until the remapped faces reach the
+    target, degenerate and repeated faces removed."""
+    vertices = np.asarray(vertices, np.float64)
+    faces = np.asarray(faces, np.int64)
+    if faces.shape[0] <= target_faces:
+        return Mesh(vertices.astype(np.float32), faces)
+    lo, hi = vertices.min(0), vertices.max(0)
+    extent = np.maximum(hi - lo, 1e-9)
+    res = 16  # faces grow ~ quadratically with the grid's resolution
+    for _ in range(12):
+        cell = extent / res
+        keys = np.minimum(np.floor((vertices - lo) / cell).astype(np.int64), res - 1)
+        flat = (keys[:, 0] * res + keys[:, 1]) * res + keys[:, 2]
+        uniq, inv = np.unique(flat, return_inverse=True)
+        new_f = inv[faces]
+        good = ((new_f[:, 0] != new_f[:, 1]) & (new_f[:, 1] != new_f[:, 2])
+                & (new_f[:, 0] != new_f[:, 2]))
+        if int(good.sum()) >= target_faces or res > 512:
+            new_v = np.zeros((len(uniq), 3))
+            counts = np.bincount(inv, minlength=len(uniq)).astype(np.float64)
+            for d in range(3):
+                new_v[:, d] = np.bincount(inv, weights=vertices[:, d], minlength=len(uniq))
+            new_v /= counts[:, None]
+            _, keep = np.unique(np.sort(new_f[good], axis=1), axis=0, return_index=True)
+            return Mesh(new_v.astype(np.float32), new_f[good][np.sort(keep)])
+        res *= 2
+    return Mesh(vertices.astype(np.float32), faces)
+
+
+def face_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    v0, v1, v2 = (vertices[faces[:, i]] for i in range(3))
+    n = np.cross(v1 - v0, v2 - v0)
+    return n / np.maximum(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
 
 
 def seal_mano_faces(faces: np.ndarray, is_rhand: bool) -> np.ndarray:

@@ -48,8 +48,11 @@ public wrappers on the same inputs, row 2's forward and row 4 on its three
 buffers (the hand's subdivided mesh, the object's buffer with the hand's
 778 vertices scaled by 2 in its first rows and far padding after them, the
 all-padding empty state), each with the vertex order the package keeps, if
-it keeps one.  ``--package DIR`` takes ``hold_tpu_torch`` from the checkout
-DIR (an earlier tree, to time both in one run on one card).
+it keeps one; and rows 2-3's backward (the closed-form VJPs of row 2's
+forward and of row 3's at row 2's x_c) by wrapper time (CUDA events around
+the call) and by device time by kernel (torch.profiler).  ``--package DIR``
+takes ``hold_tpu_torch`` from the checkout DIR (an earlier tree, to time
+both in one run on one card).
 
 Each line says whether the variant's outputs equal ``base``'s bit for bit,
 the culled share and tie lanes, and ptxas's registers and spills of the
@@ -191,7 +194,7 @@ def inputs(torch, dev) -> dict:
 def wrapper_times(dev) -> int:
     """--wrappers: row 2's forward and row 4 on its three buffers through the
     package's public wrappers, CUDA events over 100 ms of launches
-    (chip_smoke.cuda_ms)."""
+    (chip_smoke.cuda_ms); rows 2-3's backward also by device time."""
     from hold_tpu_torch.ops import knn, point_mesh
 
     data = inputs(torch, dev)
@@ -213,6 +216,22 @@ def wrapper_times(dev) -> int:
                 torch, lambda: point_mesh.min_vertex_dist_fast(cano, vv, **kw(order)))
             print(f"  row 4 {label} (P={cano.shape[0]} V={vv.shape[0]}): {ms:.4f} ms",
                   flush=True)
+
+        gen = torch.Generator(dev).manual_seed(1)
+        xc, _, inv, wb = knn._warp_fwd_cuda(pts, verts, skin, tfs, 15, 0.1, True,
+                                            "knn_inverse_warp_diff.fwd", data["order"])
+        inv_j, wb_j = knn._jinv_fwd_cuda(xc, data["row 2"][2], skin, tfs, 15, data["order"])
+        g = torch.randn(pts.shape, generator=gen, device=dev)
+        gj = torch.randn(pts.shape[:2] + (9,), generator=gen, device=dev)
+        keys = ("knn_warp_bwd_kernel", "knn_jinv_bwd_kernel", "knn_tfs_bwd_kernel",
+                "knn_tfs_bwd_final_kernel")
+        for label, fn in (("row 2 bwd", lambda: knn._warp_bwd_cuda(g, inv, xc, wb)),
+                          ("row 3 bwd", lambda: knn._jinv_bwd_cuda(gj, inv_j, wb_j))):
+            wrapper = chip_smoke.cuda_ms(torch, fn)
+            split = chip_smoke.kernel_split(torch, label, fn, keys)
+            device = f"{sum(split.values()):.4f} ms" if split else "not measured"
+            print(f"  {label} (B={pts.shape[0]} P={pts.shape[1]}): wrapper {wrapper:.4f} ms, "
+                  f"device {device}", flush=True)
     return 0
 
 

@@ -120,6 +120,32 @@ def test_jacobian_inverse_forward_and_grads_match_pallas(make, K, max_dist):
     assert p_t.grad is None  # query points are detached by contract
 
 
+@pytest.mark.parametrize("B,P,J", [(2, 1100, 16), (1, 77, 5)], ids=["5_ranges_J16", "J5"])
+def test_fixed_order_backward_matches_autograd_of_plain(B, P, J):
+    """Rows 2-3's backward in the kernels' summation order (ranges of 256
+    points, thread groups over each tile, then the ranges in order;
+    warp_bwd_fixed_order / jinv_bwd_fixed_order) against autograd of the
+    plain versions, which sum in another order: over five ranges with a
+    partial last tile, and at J = 5 (51 thread groups)."""
+    pts, verts, w, tfs, g, g9 = _scene(11, B=B, P=P, V=40, J=J, spread=0.1)
+    pts, verts, w, tfs, g, g9 = map(torch.tensor, (pts, verts, w, tfs, g, g9))
+    wb, _ = tknn._blend_plain(pts, verts, w, 15)
+    inv = tknn.inverse_mat3(tknn.skinning_jacobian(wb, tfs)).reshape(B, P, 9).contiguous()
+    p_t, t_t = pts.clone().requires_grad_(True), tfs.clone().requires_grad_(True)
+    x, _ = tknn.inverse_warp_plain(p_t, verts, w, t_t)
+    ref_p, ref_t = torch.autograd.grad(x, (p_t, t_t), g)
+    dpts, dtfs = tknn.warp_bwd_fixed_order(g, inv, x.detach(), wb)
+    torch.testing.assert_close(dpts, ref_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dtfs, ref_t, atol=1e-4 * float(ref_t.abs().max()), rtol=1e-4)
+    assert bool((dtfs[:, :, 3] == 0).all())
+
+    t_t = tfs.clone().requires_grad_(True)
+    ref = torch.autograd.grad(tknn.jacobian_inverse_plain(pts, verts, w, t_t), t_t, g9)[0]
+    dtfs = tknn.jinv_bwd_fixed_order(g9, inv, wb)
+    torch.testing.assert_close(dtfs, ref, atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
+    assert bool((dtfs[:, :, 3] == 0).all()) and bool((dtfs[:, :, :, 3] == 0).all())
+
+
 def test_kth_smallest_counts_distinct_values_like_pallas():
     d2 = np.array([[0.5, 0.1, 0.1, 0.3, 0.3, 0.3, 0.9, 0.2]], np.float32)
     for K in (1, 2, 3, 4, 5, 6):
@@ -220,3 +246,23 @@ def test_cuda_search_keeps_the_plain_neighbour_sets(cuda, duplicated):
         wk = wk.transpose(1, 2) if fn is tknn.knn_blend_weights_t else wk
         assert torch.equal(wk > 0, ref_w > 0)
         assert torch.equal(okb, ok)
+
+
+@pytest.mark.gpu
+def test_cuda_backward_sums_in_the_fixed_order(cuda):
+    """Rows 2-3's backward kernels equal warp_bwd_fixed_order /
+    jinv_bwd_fixed_order bit for bit, and the same call after call (a
+    partial last range of 77 points)."""
+    pts, verts, w, tfs, g, g9 = _mano_scene(7, P=4096 + 77)
+    args = [torch.tensor(a, device=cuda) for a in (pts, verts, w, tfs)]
+    g, g9 = torch.tensor(g, device=cuda), torch.tensor(g9, device=cuda)
+    order = tknn.tile_order(args[1][0])
+    xc, _, inv, wb = tknn._warp_fwd_cuda(*args, 15, 0.1, True, "knn_inverse_warp_diff.fwd", order)
+    first = tknn._warp_bwd_cuda(g, inv, xc, wb)
+    again = tknn._warp_bwd_cuda(g, inv, xc, wb)
+    for a, b, c in zip(first, again, tknn.warp_bwd_fixed_order(g, inv, xc, wb)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    inv, wb = tknn._jinv_fwd_cuda(*args, 15, order)
+    first = tknn._jinv_bwd_cuda(g9, inv, wb)
+    assert torch.equal(first, tknn._jinv_bwd_cuda(g9, inv, wb))
+    assert torch.equal(first, tknn.jinv_bwd_fixed_order(g9, inv, wb))

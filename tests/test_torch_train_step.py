@@ -257,4 +257,4 @@ def test_run_training_writes_metrics_and_checkpoint(tmp_path):
     ckpt = torch.load(tmp_path / "toy" / "checkpoints" / "last.pt")
     assert ckpt["step"] == 3 and "right/tables/transl" in ckpt["params"]
     with pytest.raises(NotImplementedError):
-        run_training(Cfg({**args, "no_meshing": False}), cfg, seq=seq, device="cpu")
+        run_training(Cfg({**args, "no_vis": False}), cfg, seq=seq, device="cpu")
