@@ -30,33 +30,49 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the rows where its work divides carrying them.  The render
    kernels run at one render chunk's shapes (4096 rays x 98 samples of the
    eval sampler: a frame's hand and object pixels, then background ones),
-   the KNN blend kernels at the sampler warp's.
-4. Agreement on a small batch: the sampler's z tables (fused query kernels
-   on the card, their plain versions on the CPU), then one grad-stage loss
-   and its parameter gradients, kernels on the card against the plain path
-   on the CPU, twice: with the chunked shade (``--no_fused_train``) and with
-   the fused training shade; then 256 hand and object rays of a frame, the
-   card's z tables given to both sides, composited maps on the card against
-   the CPU.
+   the KNN blend kernels at the sampler warp's.  Then the shapes ``-f``
+   gives rows 5-6 (10 frames x 8 rays, the sampler at 16 / 32 / 8 samples,
+   2 rounds): every fused query call of one ``-f`` sampler stage against its
+   plain version and the layer-by-layer query.
+4. Agreement on a small batch: the sdf the card's sampler read (every call
+   of the fused query kernels, at its own inputs) against the plain
+   versions on the CPU at the same inputs, and the plain versions on the
+   card against the CPU's; then one grad-stage loss and its parameter
+   gradients at the card's z tables, kernels on the card against the plain
+   path on the CPU: with the chunked shade (``--no_fused_train``), with the
+   fused training shade, and with it on the ``-f`` scene at its shapes (10
+   frames x 8 rays: row 7 at 208 points a frame); beside the fused ones,
+   report only, how far the z tables themselves move card vs CPU, and on
+   the CPU with float64 products; then 256 hand and object rays of a frame,
+   the card's z tables given to both sides, composited maps on the card
+   against the CPU.
 5. The training slice: ``hold_tpu_torch.train.run_training`` on the
    synthetic sequence (12 frames, 240x320) at full width, 10 frames x 128
-   rays = 1280 rays per step, three times: 6 steps with the defaults (fused
-   sampler, fused training shade) and meshing on, two steps an epoch (so
-   that the nodes are meshed at epoch 3, after the last step, on the worker
-   thread, and the object's state adopted when it ends: the steps' times
-   stay clean of it; the run must leave the object's mesh on disk and a
-   valid state); then that run's parameters meshed again at the
-   reference's resolutions, timed (SDF queries on the device, MISE on the
-   host), the object's state from it must turn the object's sparse and
-   eikonal terms on, and 3 steps with it and 3 with the empty state give
-   grad_ms side by side; then 3 steps with ``--no_fused_sampler`` (the
-   layer-by-layer sampler), 3 steps with ``--no_fused_train`` (the chunked
-   shade, each chunk recomputed in the backward) and 2 more of those with
-   ``--no_remat`` (for its peak memory), every kernel's launch counter set to
-   0 just before each.  Every
-   loss must be finite and every kernel of a path launched in its run, and
-   none off it; one more step of each run under torch.profiler gives the
-   device time of each stage by kernel family.
+   rays = 1280 rays per step: 6 steps with the defaults (fused sampler,
+   fused training shade), meshing and validation on, two steps an epoch
+   (so that the nodes are meshed at epoch 3, after the last step, on the
+   worker thread, and the object's state adopted when it ends; and that
+   epoch 3, ``--eval_every_epoch`` 3, writes ``step_000000006.pt`` with
+   ``last.pt`` on it and renders one validation frame: its panel and a
+   finite ``val/psnr`` must be there; the steps' times stay clean of both);
+   then that run's parameters meshed again at the reference's resolutions,
+   timed (SDF queries on the device, MISE on the host), the object's state
+   from it must turn the object's sparse and eikonal terms on, and 3 steps
+   with it and 3 with the empty state give grad_ms side by side; then the
+   fused run resumed: at its saved step its parameters and Adam state must
+   equal the checkpoint's bit for bit, then 2 more steps, which write
+   ``step_000000008.pt`` and validate; then 3 steps with
+   ``--no_fused_sampler`` (the layer-by-layer sampler), 3 steps with
+   ``--no_fused_train`` (the chunked shade, each chunk recomputed in the
+   backward) and 2 more of those with ``--no_remat`` (for its peak memory);
+   2 steps of ``-f`` through the CLI's parser (8 rays a frame, the sampler
+   at 16 / 32 / 8 samples, 2 rounds); and a two-hand sequence: phase 4's
+   fused agreement at 16 rays, then 3 steps at 1280 rays, each hand running
+   its own rows 2, 3 and 5 and row 7 shading three nodes.  Every kernel's
+   launch counter is set to 0 just before each run.  Every loss must be
+   finite and every kernel of a path launched in its run, and none off it;
+   one more step of each run under torch.profiler gives the device time of
+   each stage by kernel family.
 6. The render slice: ``hold_tpu_torch.render_cli`` loads the fused run's
    checkpoint and renders two full frames at ``render_downsample`` 2
    (120x160 = 19,200 rays, 4096 a chunk), counters at 0 just before: the
@@ -65,6 +81,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``--no_fused_render``), whose PSNR against the fused render must reach
    ``PSNR_FLOOR``, and one frame under torch.profiler for the device time by
    kernel family.
+7. Evaluation: ``hold_tpu_torch.evaluate`` on the fused run's experiment
+   against the synthetic ground truth (servers on the card, metrics and ICP
+   on the host; no kernel launched): every metric finite, the ICP's too;
+   then on a sequence made with ``pose_noise`` 0.3 after 2 steps from its
+   noised poses, against its ``entities_gt``.  Walls split into the servers
+   and the host's metrics.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels (errors, kernel and plain
@@ -80,6 +102,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -99,7 +122,13 @@ SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point
 # "render" (phase 6)).  The point-buffer forms of the fused query and the KNN
 # blend kernels are on no path, in the JAX package as here: phase 3 alone
 # drives them.
-GRAD = ("fused", "layer", "chunked")
+# Since the training loop validates and resumes, also "resume" (phase 5, the
+# fused run resumed for 2 steps), "fast" (phase 5, -f) and "two_hands"
+# (phase 5, a two-hand sequence); the fused and resumed runs validate, so
+# they launch the render kernels too.
+GRAD = ("fused", "layer", "chunked", "resume", "fast", "two_hands")
+FUSED_SAMPLER = ("fused", "chunked", "render", "resume", "fast", "two_hands")
+FUSED_SHADE = ("fused", "layer", "resume", "fast", "two_hands")
 KERNELS = {
     "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", ("layer",)),
     "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", GRAD),
@@ -107,16 +136,16 @@ KERNELS = {
     "knn_jacobian_inverse.fwd": ("knn", "hold_tpu/ops/knn.py:737", GRAD),
     "knn_jacobian_inverse.bwd": ("knn", "hold_tpu/ops/knn.py:781", GRAD),
     "min_vertex_dist": ("pm", "hold_tpu/ops/point_mesh.py:228", GRAD),
-    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484",
-                                 ("fused", "chunked", "render")),
-    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520",
-                                   ("fused", "chunked", "render")),
-    "fused_shade_train.fwd": ("fs", "hold_tpu/ops/fused_shade.py:294", ("fused", "layer")),
-    "fused_shade_train.bwd": ("fs", "hold_tpu/ops/fused_shade.py:315", ("fused", "layer")),
+    "fused_hand_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:484", FUSED_SAMPLER),
+    "fused_object_sampler_sdf_z": ("fq", "hold_tpu/ops/fused_query.py:520", FUSED_SAMPLER),
+    "fused_shade_train.fwd": ("fs", "hold_tpu/ops/fused_shade.py:294", FUSED_SHADE),
+    "fused_shade_train.bwd": ("fs", "hold_tpu/ops/fused_shade.py:315", FUSED_SHADE),
     "fused_hand_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:389", ()),
     "fused_object_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:419", ()),
-    "fused_hand_render": ("fr", "hold_tpu/ops/fused_render.py:480", ("render",)),
-    "fused_object_render": ("fr", "hold_tpu/ops/fused_render.py:514", ("render",)),
+    "fused_hand_render": ("fr", "hold_tpu/ops/fused_render.py:480",
+                          ("render", "fused", "resume")),
+    "fused_object_render": ("fr", "hold_tpu/ops/fused_render.py:514",
+                            ("render", "fused", "resume")),
     "knn_blend_weights": ("knn", "hold_tpu/ops/knn.py:144", ()),
     "knn_blend_weights_t": ("knn", "hold_tpu/ops/knn.py:254", ()),
 }
@@ -131,13 +160,6 @@ PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # grows with the value.  The object's canonical space is world space over its
 # scale (0.1 here), so far samples reach |sdf| ~ 30.
 FQ_MAX, FQ_MEAN = 2e-2, 4e-3
-# card vs CPU z tables: the share of samples farther apart than 0.1 x the
-# median sample spacing.  Not the max: the sampler's inverse-CDF draws
-# amplify rare rounding differences, and a few samples move by up to 20x
-# that.  On an H100 the plain fused path alone, card against CPU, put 1.1 %
-# of the object's samples beyond it, and the layer-by-layer sampler 2.2 %;
-# the kernel against the plain path on the card 0.45 %.
-Z_FAR_SHARE = 0.03
 # the render kernels against their plain versions (phase 3): sdf as FQ_MAX /
 # FQ_MEAN scaled by max(1, |sdf|), as for the query; x_c and the nearest
 # distance are computed op for op alike (1e-5).  The JAX package holds its
@@ -410,19 +432,21 @@ def products_in_f64(torch):
         torch.Tensor.__matmul__ = matmul
 
 
-def check_bf16_query(name: str, got, ref) -> float:
-    """|d| <= FQ_MAX * max(1, |ref|) and mean|d| <= FQ_MEAN, else raise;
-    returns max|d|."""
+def check_bf16_query(name: str, got, ref, scaled_mean: bool = False) -> float:
+    """|d| <= FQ_MAX * max(1, |ref|) and mean|d| <= FQ_MEAN (with
+    ``scaled_mean`` the mean of |d| / max(1, |ref|)), else raise; returns
+    max|d|."""
     d = (got.float() - ref.float()).abs()
     mag = ref.float().abs()
-    err, mean = float(d.max()), float(d.mean())
+    err = float(d.max())
+    mean = float((d / mag.clamp(min=1.0) if scaled_mean else d).mean())
     near = float(d[mag <= 1.0].max()) if bool((mag <= 1.0).any()) else 0.0
     worst = float((d / (FQ_MAX * mag.clamp(min=1.0))).max())
     ok = worst <= 1.0 and mean <= FQ_MEAN
     print(f"  {name}: max_abs_err {err:.3e} (at |sdf| <= 1: {near:.3e}; worst "
-          f"|d| / ({FQ_MAX:g} max(1, |sdf|)) {worst:.3f}), mean_abs_err {mean:.3e} "
-          f"(tol {FQ_MEAN:g}), max |sdf| {float(mag.max()):.2f} {'ok' if ok else 'FAIL'}",
-          flush=True)
+          f"|d| / ({FQ_MAX:g} max(1, |sdf|)) {worst:.3f}), mean_abs_err"
+          f"{' / max(1, |sdf|)' if scaled_mean else ''} {mean:.3e} (tol {FQ_MEAN:g}), max "
+          f"|sdf| {float(mag.max()):.2f} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
@@ -1061,6 +1085,89 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
         raise AssertionError(f"fused_shade_train.bwd disagrees with its plain version: {failed}")
 
 
+def fast_config(data_root: str):
+    """``-f`` through the training CLI's parser: (args, cfg), the model's
+    sampler shortened as ``run_training`` shortens it."""
+    from hold_tpu_torch.train import FAST_SAMPLER
+    from hold_tpu_torch.utils.config import parse_args
+
+    args, cfg = parse_args(["--case", "synthetic", "--data_root", data_root, "--log_root",
+                            os.path.join(ROOT, "logs", "chip_smoke"), "--exp_key",
+                            "chip_smoke_fast", "-f", "--mute"])
+    cfg["model"]["ray_sampler"] = dict(cfg["model"]["ray_sampler"], **FAST_SAMPLER)
+    return args, cfg
+
+
+def fast_shape_checks(torch, seq, data_root: str, dev, results) -> None:
+    """Phase 3 at the shapes that ``-f`` gives rows 5-6 and no other check
+    does: the ``-f`` scene as ``run_training`` builds it (the sampler at 16 /
+    32 / 8 samples, 2 rounds) on 10 frames x 8 rays.  Every call that one
+    step's sampler makes of the fused query kernels, at its own inputs,
+    against the plain version and against the layer-by-layer query (the
+    ``--no_fused_sampler`` path, which the JAX package takes at these sample
+    counts), under the fused query's bounds; against the layer-by-layer
+    query, which rounds to bf16 at other places, the mean too is scaled by
+    max(1, |sdf|): the object's far samples reach |sdf| ~ 30, where a bf16
+    step is 0.125.  Row 7 at these shapes: phase 4's agreement on the ``-f``
+    scene."""
+    import numpy as np
+
+    from hold_tpu_torch.models import nodes
+    from hold_tpu_torch.models.holdnet import build_scene, init_scene_params, sample_all_z
+    from hold_tpu_torch.models.mlp import cast_tree, resolve_weight_norm
+    from hold_tpu_torch.models.object_model import object_deform
+    from hold_tpu_torch.ops import fused_query as fq
+    from hold_tpu_torch.ops import knn
+    from hold_tpu_torch.train import FAST_SAMPLER, batch_to_device
+
+    args, cfg = fast_config(data_root)
+    scene = build_scene(dict(cfg["model"], scene_bounding_sphere=seq.scene_bounding_sphere),
+                        dict(args), seq.scene_data(), dev)
+    params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(0), BATCH_SIZE, 1,
+                                                   int(args["num_sample"])), dev)
+    B, P = batch["uv"].shape[:2]
+    step, epoch = 300, 25
+    print(f"  -- the -f shapes: 10 frames x {P} rays, samples {FAST_SAMPLER}", flush=True)
+    calls = []
+    with recorded_queries(calls):
+        sample_all_z(params, scene, batch, torch.Generator(dev).manual_seed(0), step, epoch)
+    with torch.no_grad():
+        obj_tfs = nodes._object_pose(params["object"], scene.servers["object"], batch).obj_tfs
+        nets = {nid: cast_tree(resolve_weight_norm(params[nid]["implicit"]), torch.bfloat16)
+                for nid in ("right", "object")}
+
+    @torch.no_grad()
+    def layer(call):
+        kind, a, _, _ = call
+        nid = "right" if kind == "hand" else "object"
+        plans = scene.plans[nid]
+        pts = fq.points_from_rays_z(*a[:3])
+        if kind == "hand":
+            x_c, _ = knn.knn_inverse_warp(pts, *a[3:6], K=plans.knn_k, max_dist=plans.max_dist,
+                                          order=plans.tile_order)
+        else:
+            x_c = object_deform(pts, obj_tfs, inverse=True)
+        return nodes._bf16_trunk_sdf(nets[nid], plans, x_c.reshape(-1, 3), step).reshape(
+            a[2].shape)
+
+    errs = {}
+    for i, call in enumerate(calls):
+        kind, a, _, got = call
+        name, shape = f"fused_{kind}_sampler_sdf_z", f"B={B} P={P} S={a[2].shape[2]}"
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name} {shape}: non-finite values")
+        errs.setdefault(name, {})[f"call {i} {shape}"] = {
+            "plain": check_bf16_query(f"{name} call {i} {shape} vs plain", got,
+                                      plain_query(torch, call, dev)),
+            "layer": check_bf16_query(f"{name} call {i} {shape} vs layer by layer", got,
+                                      layer(call), scaled_mean=True)}
+    if len(errs) != 2:
+        raise AssertionError(f"the -f sampler called {sorted(errs)} only")
+    for name, e in errs.items():
+        results[name]["fast"] = e
+
+
 def render_batch(torch, seq, dev, n_rays):
     """``n_rays`` pixels of frame 0 at RENDER_DOWNSAMPLE, as one chunk of the
     renderer: those that the ground-truth mask marks as hand or object
@@ -1213,15 +1320,91 @@ def hand_render_search(torch, args, order) -> dict:
     return out
 
 
-def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
+@contextlib.contextmanager
+def recorded_queries(calls: list):
+    """While open, every call of the nodes' sampler queries (the fused query
+    kernels' wrappers) is appended to ``calls`` as (kind, args, kwargs,
+    output), kind "hand" or "object", in the order the sampler made them."""
+    from hold_tpu_torch.models import nodes
+
+    kernels = (nodes.fused_hand_sampler_sdf_z, nodes.fused_object_sampler_sdf_z)
+
+    def recorder(kind, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            calls.append((kind, a, k, out))
+            return out
+        return call
+
+    nodes.fused_hand_sampler_sdf_z, nodes.fused_object_sampler_sdf_z = (
+        recorder("hand", kernels[0]), recorder("object", kernels[1]))
+    try:
+        yield
+    finally:
+        nodes.fused_hand_sampler_sdf_z, nodes.fused_object_sampler_sdf_z = kernels
+
+
+def plain_query(torch, call, device):
+    """A recorded sampler query's plain version on ``device``, at the
+    call's own inputs: sdf (B, P, S)."""
+    from hold_tpu_torch.ops import fused_query as fq
+
+    kind, a, k, _ = call
+
+    def to(x):
+        if isinstance(x, dict):
+            return {n: to(t) for n, t in x.items()}
+        return x.to(device) if torch.is_tensor(x) else x
+
+    a = [to(x) for x in a]
+    pts = fq.points_from_rays_z(*a[:3])
+    if kind == "hand":
+        return fq.hand_query_plain(pts, *a[3:8], k.get("K", 15)).reshape(a[2].shape)
+    return fq.object_query_plain(pts, *a[3:6]).reshape(a[2].shape)
+
+
+def sampler_reads_check(torch, calls: list, dev) -> None:
+    """Phase 4: the sdf that the card's sampler read, every call of the fused
+    query kernels at its own inputs, against the plain versions on the CPU
+    at the same inputs, under the fused query's bounds (FQ_MAX, FQ_MEAN);
+    beside it, as a witness that the card and the CPU compute the same
+    function there, the plain versions on the card against the CPU's.  The
+    z tables themselves are not held to a bound: the rest of the sampler
+    (plain PyTorch on both devices) rounds differently on each, and its
+    inverse-CDF draws turn a small difference into a jump of a whole sample
+    spacing (``agreement_check`` prints how many move)."""
+    cpu = torch.device("cpu")
+    for kind in ("hand", "object"):
+        mine = [c for c in calls if c[0] == kind]
+        got = torch.cat([c[3].reshape(-1) for c in mine]).cpu()
+        ref = torch.cat([plain_query(torch, c, cpu).reshape(-1) for c in mine])
+        card = torch.cat([plain_query(torch, c, dev).reshape(-1) for c in mine]).cpu()
+        what = f"{kind} sdf the sampler read ({len(mine)} calls, {got.numel()} samples)"
+        check_bf16_query(f"{what}, card kernels vs CPU plain", got, ref)
+        check_bf16_query(f"{what}, card plain vs CPU plain", card, ref)
+
+
+def z_moved(torch, got, ref) -> str:
+    """The share of the samples of z tables ``got`` that lie farther than 0.1
+    x the median sample spacing from ``ref``'s, and the rays holding them."""
+    d = (got.cpu() - ref.cpu()).abs()
+    beyond = d > 0.1 * float(torch.diff(ref.cpu(), dim=1).median())
+    return f"{float(beyond.float().mean()):.5f} ({int(beyond.any(dim=1).sum())} of {d.shape[0]} rays)"
+
+
+def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 1,
+                    rays: int = 16) -> None:
     """Phase 4: grad-stage loss and gradients, card kernels vs CPU plain path,
-    with the fused training shade or the chunked one (``--no_fused_train``).
+    on ``pairs`` pairs of frames x ``rays`` rays, with the fused training
+    shade or the chunked one (``--no_fused_train``).
     The chunked path is held to 1e-4 (losses) and 2e-4 (gradients); the
     fused one, whose bf16 roundings fall on different sides where the sums'
     order differs, to 2e-3 (losses, the JAX package's fused-vs-chunked bound)
     and each parameter's gradient to AGREE_LIMIT, beside two more CPU runs
     read the same way: the plain path with float64 products (sound) and the
-    chunked f32 shade (the control)."""
+    chunked f32 shade (the control).  Every run shades the card's z tables;
+    the sdf that the card's sampler read to place them is held to the CPU's
+    at the same inputs (``sampler_reads_check``)."""
     import numpy as np
 
     from hold_tpu_torch.models.holdnet import (
@@ -1234,36 +1417,28 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
 
     step, epoch = 300, 25  # hand loss targets active, pose conditioning on
     opt_model = dict(cfg["model"])
-    batch_np = seq.sample_tempo_batch(np.random.RandomState(1), 1, 1, 16)
+    batch_np = seq.sample_tempo_batch(np.random.RandomState(1), pairs, 1, rays)
     params0 = init_scene_params(torch.Generator().manual_seed(3),
                                 build_scene(opt_model, dict(args), seq.scene_data(), "cpu"),
                                 seq.scene_data())
     scene_cpu = build_scene(opt_model, dict(args), seq.scene_data(), "cpu")
-    draws_cpu = sample_step_draws(scene_cpu, 2, 16, torch.Generator().manual_seed(4))
+    draws_cpu = sample_step_draws(scene_cpu, 2 * pairs, rays, torch.Generator().manual_seed(4))
     z_card = {}
 
-    def grad_stage(device, check_z: bool = False, fused: bool = fused_train):
+    def grad_stage(device, fused: bool = fused_train):
         scene = build_scene(opt_model, dict(args), seq.scene_data(), device, fused_train=fused)
-        if [scene.plans[nid].fused_train for nid in scene.node_ids] != [fused] * 2:
+        if [scene.plans[nid].fused_train for nid in scene.node_ids] != [fused] * len(
+                scene.node_ids):
             raise AssertionError(f"fused training shade not {fused} on every node")
         params = leaf_params(params0, device)
         batch = batch_to_device(batch_np, device)
         if not z_card:  # the card's sampler places the samples for every run
             if not all(scene.plans[nid].fused_query for nid in scene.node_ids):
                 raise AssertionError("the slice's sampler is not the fused one")
-            z_card.update(sample_all_z(params, scene, batch, None, step, epoch))
-        elif check_z:  # fused query kernels on the card against their plain versions
-            for nid, ref in sample_all_z(params, scene, batch, None, step, epoch).items():
-                d = (z_card[nid].cpu() - ref).abs()
-                tol = 0.1 * float(torch.diff(ref, dim=1).median())
-                far = float((d > tol).float().mean())
-                ok = far <= Z_FAR_SHARE
-                print(f"  z table {nid}: |card - cpu| max {float(d.max()):.3e}, p99 "
-                      f"{float(d.flatten().quantile(0.99)):.3e}; share beyond 0.1 x median "
-                      f"spacing ({tol:.3e}) {far:.5f} (tol {Z_FAR_SHARE}) "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    raise AssertionError(f"{nid}: card and CPU z tables disagree")
+            calls = []
+            with recorded_queries(calls):
+                z_card.update(sample_all_z(params, scene, batch, None, step, epoch))
+            sampler_reads_check(torch, calls, dev)
         z = {k: v.to(device) for k, v in z_card.items()}
         draws = {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device))
                  for k, v in draws_cpu.items()}
@@ -1279,7 +1454,7 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
 
     losses, grads = {}, {}
     losses["cuda"], grads["cuda"] = grad_stage(dev)
-    losses["cpu"], grads["cpu"] = grad_stage(torch.device("cpu"), check_z=True)
+    losses["cpu"], grads["cpu"] = grad_stage(torch.device("cpu"))
     rtol = 2e-3 if fused_train else 1e-4
     for k, v in losses["cpu"].items():
         got = losses["cuda"][k]
@@ -1287,6 +1462,18 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool) -> None:
         if not (math.isfinite(got) and abs(got - v) <= rtol * abs(v) + 1e-5):
             raise AssertionError(f"{k}: card and CPU disagree")
     if fused_train:
+        # report only: how far the z tables themselves move, the card's
+        # against the CPU's and, on the CPU alone, with the products summed
+        # in float64 against without
+        cpu = torch.device("cpu")
+        p_cpu, b_cpu = leaf_params(params0, cpu), batch_to_device(batch_np, cpu)
+        z_cpu = sample_all_z(p_cpu, scene_cpu, b_cpu, None, step, epoch)
+        with products_in_f64(torch):
+            z_f64 = sample_all_z(p_cpu, scene_cpu, b_cpu, None, step, epoch)
+        for nid in scene_cpu.node_ids:
+            print(f"  z table {nid}, samples moved beyond 0.1 x the median spacing (report "
+                  f"only): card vs CPU {z_moved(torch, z_card[nid], z_cpu[nid])}; CPU with "
+                  f"float64 products vs CPU {z_moved(torch, z_f64[nid], z_cpu[nid])}", flush=True)
         with products_in_f64(torch):
             _, grads["f64 products"] = grad_stage(torch.device("cpu"))
         _, grads["chunked"] = grad_stage(torch.device("cpu"), fused=False)
@@ -1360,23 +1547,27 @@ def render_agreement(torch, seq, args, cfg, dev) -> None:
             raise AssertionError(f"render {k}: card and CPU disagree")
 
 
-def slice_run(torch, seq, args, cfg, dev, steps: int) -> tuple:
-    """Phase 5, one run: ``run_training`` from counters at 0; checks the
-    losses and that this path launched each of its kernels.  Returns the
-    launch counts and what run_training returned."""
+def slice_run(torch, seq, args, cfg, dev, steps: int, path: str | None = None,
+              first: int = 0) -> tuple:
+    """Phase 5, one run: ``run_training`` from counters at 0, steps ``first``
+    to ``first + steps`` (a run that resumes at ``first``); checks the
+    losses and that this path launched each of its kernels and none off it.
+    Returns the launch counts and what run_training returned."""
     from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
     from hold_tpu_torch.train import run_training
 
-    path = ("layer" if args.get("no_fused_sampler") else
-            "chunked" if args.get("no_fused_train") else "fused")
-    print(f"  -- {path}{' (--no_remat)' if args.get('no_remat') else ''}: {steps} steps", flush=True)
+    path = path or ("layer" if args.get("no_fused_sampler") else
+                    "chunked" if args.get("no_fused_train") else "fused")
+    print(f"  -- {path}{' (--no_remat)' if args.get('no_remat') else ''}: {steps} steps",
+          flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
     for mod in mods:
         mod.reset_launch_counts()
-    params, scene, mesh_state, tracker, timer = run_training(args, cfg, seq=seq, max_steps=steps,
-                                                             device=dev)
+    params, scene, mesh_state, tracker, timer, _ = run_training(args, cfg, seq=seq,
+                                                                max_steps=first + steps,
+                                                                device=dev)
     torch.cuda.synchronize()
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -1386,7 +1577,7 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> tuple:
             or shade != (list(scene.node_ids) if path != "chunked" else [])):
         raise AssertionError(f"{path} run: fused sampler on {fused}, fused shade on {shade}")
     with open(os.path.join(tracker.log_dir, "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
+        records = [r for r in map(json.loads, f) if "loss" in r and r["step"] >= first]
     if len(records) != steps:
         raise AssertionError(f"expected {steps} metric records, got {len(records)}")
     for rec in records:
@@ -1401,15 +1592,124 @@ def slice_run(torch, seq, args, cfg, dev, steps: int) -> tuple:
     if missing or stray:
         raise AssertionError(f"{path} run: not launched {missing}, launched off its path {stray}")
     summ = timer.summary()
-    rays = BATCH_SIZE * 2 * RAYS_PER_FRAME
+    rays = BATCH_SIZE * 2 * int(args["num_sample"])
     step_s = summ["sampler"] + summ["grad"] + summ["data"]
     print(f"  sampler_ms {summ['sampler'] * 1e3:.3f}")
     print(f"  grad_ms {summ['grad'] * 1e3:.3f}")
     print(f"  data_ms {summ['data'] * 1e3:.3f}")
-    print(f"  rays_per_s {rays / step_s:.1f} ({rays} rays per step, steps 1..{steps - 1})")
+    print(f"  rays_per_s {rays / step_s:.1f} ({rays} rays per step, steps {first + 1}.."
+          f"{first + steps - 1})")
+    for ph in ("checkpoint", "val_render"):  # outside the step walls
+        if ph in timer.totals:
+            print(f"  {ph}_ms {summ[ph] * 1e3:.3f} (mean of {timer.counts[ph]})")
     print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)", flush=True)
     train_profile(torch, seq, args, scene, params, mesh_state, dev, summ)
     return launches, (params, scene, mesh_state, tracker)
+
+
+def loop_outputs(log_dir: str, at_step: int, val: bool) -> None:
+    """Phase 5: what a run leaves at ``at_step``: ``step_<at_step>.pt`` with
+    ``last.pt`` pointing at it (its size printed) and, with ``val``, a
+    validation panel of that step and a finite ``val/psnr``.  A validation
+    that failed is only logged by the loop, as in the reference, so it is
+    checked here."""
+    import glob
+
+    root = os.path.join(log_dir, "checkpoints")
+    ckpt = os.path.join(root, f"step_{at_step:09d}.pt")
+    if not os.path.isfile(ckpt) or os.path.realpath(os.path.join(root, "last.pt")) != ckpt:
+        raise AssertionError(f"no {ckpt}, or last.pt does not point at it")
+    print(f"  checkpoint {os.path.basename(ckpt)} <- last.pt: {os.path.getsize(ckpt)} bytes",
+          flush=True)
+    if not val:
+        return
+    pngs = glob.glob(os.path.join(log_dir, "visuals", f"val_*_{at_step:09d}.png"))
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        psnr = [r["val/psnr"] for r in map(json.loads, f)
+                if "val/psnr" in r and r["step"] == at_step]
+    print(f"  validation at step {at_step}: {[os.path.basename(p) for p in pngs]}, val/psnr "
+          f"{psnr}", flush=True)
+    if not pngs or len(psnr) != 1 or not math.isfinite(psnr[0]):
+        raise AssertionError(f"no validation panel or no finite val/psnr at step {at_step}")
+
+
+def resume_checks(torch, seq, args, cfg, dev) -> dict:
+    """Phase 5: ``run_training`` again on the fused run's experiment.  At the
+    saved step (no step to run) its parameters and Adam state must equal the
+    checkpoint's bit for bit; then 2 steps from there (the "resume" path),
+    which must write their checkpoint and validation.  Returns the 2 steps'
+    launch counts."""
+    from hold_tpu_torch.train import run_training
+    from hold_tpu_torch.utils.checkpoint import read_checkpoint
+    from hold_tpu_torch.utils.convert import flatten_params
+
+    log_dir = os.path.join(args["log_root"], args["exp_key"])
+    saved = read_checkpoint(os.path.join(log_dir, "checkpoints", "last.pt"))
+    params, _, _, _, timer, opt = run_training(args, cfg, seq=seq, max_steps=STEPS, device=dev)
+    flat = flatten_params(params)
+    bad = [k for k, t in flat.items() if not torch.equal(t.detach().cpu(), saved["params"][k])]
+    got, ref = opt.state_dict(), saved["optimizer"]
+    adam = [(i, name, t) for i, st in ref["state"].items() for name, t in st.items()]
+    bad += [f"adam {i}.{name}" for i, name, t in adam
+            if not torch.equal(got["state"][i][name].cpu(), t.cpu())]
+    if got["param_groups"] != ref["param_groups"]:
+        bad.append("adam param_groups")
+    print(f"  resumed at step {saved['step']}: {len(flat)} parameter tensors and {len(adam)} "
+          f"Adam state tensors against the checkpoint's, {len(bad)} differ", flush=True)
+    if saved["step"] != STEPS or timer.counts or bad:
+        raise AssertionError(f"resume: step {saved['step']}, steps run {timer.counts}, "
+                             f"differ {bad[:8]}")
+    del params, opt
+    launches, _ = slice_run(torch, seq, args, cfg, dev, 2, path="resume", first=STEPS)
+    loop_outputs(log_dir, STEPS + 2, val=True)
+    return launches
+
+
+def fast_run(torch, seq, data_root: str, dev) -> dict:
+    """Phase 5: ``-f`` through the CLI's parser at full width: 8 rays a frame,
+    the sampler at 16 / 32 / 8 samples and 2 rounds, 2 steps (the "fast"
+    path).  Returns the launch counts."""
+    args, cfg = fast_config(data_root)
+    launches, run = slice_run(torch, seq, args, cfg, dev, 2, path="fast")
+    sc = run[1].sampler_cfg
+    print(f"  -f: {args['num_sample']} rays a frame, samples {sc.N_samples} / "
+          f"{sc.N_samples_eval} / {sc.N_samples_extra}, {sc.max_total_iters} rounds", flush=True)
+    if (sc.N_samples, sc.N_samples_eval, sc.N_samples_extra, sc.max_total_iters) != (16, 32, 8, 2):
+        raise AssertionError("-f did not shorten the sampler")
+    loop_outputs(run[3].log_dir, 2, val=False)
+    return launches
+
+
+def two_hand_run(torch, args, cfg, dev, launches: dict) -> dict:
+    """Phase 5: a two-hand synthetic sequence (12 frames, 240x320): phase
+    4's fused agreement at 16 rays, then 3 steps with the defaults at 1280
+    rays (the "two_hands" path).  Each hand must run its own rows 2, 3 and
+    5 (twice the launches of the one-hand chunked run, whose steps are as
+    many) and row 7 must shade three nodes (1.5 times the one-hand layer
+    run's).  Returns the launch counts."""
+    from hold_tpu_torch.data.dataset import SequenceData
+    from hold_tpu_torch.data.synthetic import generate_sequence
+    from hold_tpu_torch.utils.config import Cfg
+
+    built = generate_sequence(None, FRAMES, IMG_HW, two_hands=True)
+    seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=RAYS_PER_FRAME)
+    print(f"  -- two hands: the fused agreement at 16 rays ({seq.hand_ids} + object)",
+          flush=True)
+    agreement_check(torch, seq, args, cfg, dev, fused_train=True)
+    got, run = slice_run(torch, seq, Cfg({**args, "exp_key": "chip_smoke_two_hands"}), cfg, dev,
+                         LAYER_STEPS, path="two_hands")
+    if run[1].node_ids != ("right", "left", "object"):
+        raise AssertionError(f"two-hand scene has nodes {run[1].node_ids}")
+    want = {k: 2 * launches["chunked"][k] for k in (
+        "knn_inverse_warp_diff.fwd", "knn_inverse_warp_diff.bwd", "knn_jacobian_inverse.fwd",
+        "knn_jacobian_inverse.bwd", "fused_hand_sampler_sdf_z")}
+    want.update({k: 3 * launches["layer"][k] // 2 for k in ("fused_shade_train.fwd",
+                                                            "fused_shade_train.bwd")})
+    print(f"  launches for both hands (two-hand run / expected): "
+          f"{ {k: (got[k], v) for k, v in want.items()} }", flush=True)
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError("the two-hand run did not launch rows 2, 3, 5 and 7 for both hands")
+    return got
 
 
 @contextlib.contextmanager
@@ -1597,7 +1897,7 @@ def train_profile(torch, seq, args, scene, params, mesh_state, dev, summ) -> Non
 
     opt = optimizer_for(args, params)
     batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(5), BATCH_SIZE, 1,
-                                                   RAYS_PER_FRAME), dev)
+                                                   int(args["num_sample"])), dev)
     B, P = batch["uv"].shape[:2]
     gen = torch.Generator(dev).manual_seed(5)
     step = int(args["total_step"])
@@ -1677,7 +1977,7 @@ def render_slice(torch, seq, data_root, args, dev) -> dict:
     if missing or stray:
         raise AssertionError(f"render run: not launched {missing}, launched off its path {stray}")
 
-    params, scene = load_experiment(exp, seq, dev, fused_render=False)
+    params, scene, _ = load_experiment(exp, seq, dev, fused_render=False)
     batch, pix = render_batch(torch, seq, dev, PIXEL_PER_BATCH)
     layer = make_chunk_renderer(scene)(params, batch)
     res0 = records[0]["res"]  # frame 0
@@ -1706,7 +2006,7 @@ def render_profile(torch, seq, exp: str, dev, frame_s: float) -> None:
     from hold_tpu_torch.render.renderer import make_chunk_renderer, render_frame
     from hold_tpu_torch.utils.checkpoint import load_experiment
 
-    params, scene = load_experiment(exp, seq, dev)
+    params, scene, _ = load_experiment(exp, seq, dev)
     fb = seq.full_frame_batch(0, downsample=RENDER_DOWNSAMPLE)
     chunk_fn = make_chunk_renderer(scene)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1721,6 +2021,70 @@ def render_profile(torch, seq, exp: str, dev, frame_s: float) -> None:
           f"frame", flush=True)
 
 
+# evaluate.EVAL_FN_DICT's entries (and the ICP, run when the prediction has
+# the object's mesh) -> the metrics each writes to eval.metric.json
+EVAL_KEYS = {"mpjpe_ra_r": ("mpjpe_ra_r",), "mrrpe_ho": ("mrrpe_ho",),
+             "cd_f_ra": ("cd_ra", "f5_ra", "f10_ra"),
+             "cd_f_right": ("cd_right", "f5_right", "f10_right"),
+             "icp": ("cd_icp", "f5_icp", "f10_icp")}
+NOISE = 0.3  # pose_noise of phase 7's noised sequence
+
+
+def evaluation(torch, data_root: str, args, cfg, dev) -> None:
+    """Phase 7: ``hold_tpu_torch.evaluate`` on the fused run's experiment
+    against the synthetic ground truth, at the default ICP restarts: every
+    metric of EVAL_KEYS finite in eval.metric.json, no kernel launched (the
+    servers are plain PyTorch on the card, the ICP numpy on the host).  Then
+    a sequence made with ``pose_noise``, 2 steps of training from its noised
+    poses, and evaluate against its ``entities_gt``: the metrics of
+    EVAL_FN_DICT finite (the run does not mesh: no ICP), and the hand's
+    error above the clean run's."""
+    from hold_tpu_torch import evaluate
+    from hold_tpu_torch.data.dataset import SequenceData
+    from hold_tpu_torch.data.synthetic import generate_sequence
+    from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
+    from hold_tpu_torch.train import run_training
+    from hold_tpu_torch.utils.config import Cfg
+
+    if set(EVAL_KEYS) - {"icp"} != set(evaluate.EVAL_FN_DICT):
+        raise AssertionError(f"EVAL_FN_DICT is {sorted(evaluate.EVAL_FN_DICT)}")
+    mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
+
+    def run(exp, case, keys):
+        for mod in mods:
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec = evaluate.main(["--exp", exp, "--case", case, "--data_root", data_root,
+                             "--device", dev.type])
+        wall = time.perf_counter() - t0
+        launched = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+        with open(os.path.join(exp, "eval.metric.json")) as f:
+            written = json.load(f)
+        names = [m for k in keys for m in EVAL_KEYS[k]]
+        bad = [m for m in names if not math.isfinite(written.get(m, float("nan")))]
+        print(f"  {case}: wall {wall * 1e3:.3f} ms = checkpoint, servers on the card and eval "
+              f"space {rec['servers_s'] * 1e3:.3f} ms + metrics and ICP on the host "
+              f"{rec['metrics_s'] * 1e3:.3f} ms (+ reading the sequence); "
+              f"{ {m: written.get(m) for m in names} }", flush=True)
+        if bad or launched:
+            raise AssertionError(f"{case}: metrics not finite {bad}, kernels launched {launched}")
+        return written
+
+    clean = run(os.path.join(args["log_root"], args["exp_key"]), "synthetic", list(EVAL_KEYS))
+    generate_sequence(os.path.join(data_root, "synthetic_noisy"), FRAMES, IMG_HW,
+                      pose_noise=NOISE)
+    seq = SequenceData.from_build_dir("synthetic_noisy", data_root, num_sample=RAYS_PER_FRAME)
+    noisy_args = Cfg({**args, "case": "synthetic_noisy", "exp_key": "chip_smoke_noisy"})
+    run_training(noisy_args, cfg, seq=seq, max_steps=2, device=dev)
+    noisy = run(os.path.join(args["log_root"], "chip_smoke_noisy"), "synthetic_noisy",
+                list(evaluate.EVAL_FN_DICT))
+    ok = noisy["mpjpe_ra_r"] > clean["mpjpe_ra_r"]
+    print(f"  mpjpe_ra_r: noised init ({NOISE}) {noisy['mpjpe_ra_r']:.4f} mm against its "
+          f"truth, clean run {clean['mpjpe_ra_r']:.4f} mm {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the noised sequence is not evaluated against its truth")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hold_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding hold_tpu_torch/", file=sys.stderr)
@@ -1732,6 +2096,8 @@ def main() -> int:
         return 3
     sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
+    # a run that finds its experiment's checkpoint resumes from it: start clean
+    shutil.rmtree(os.path.join(ROOT, "logs", "chip_smoke"), ignore_errors=True)
 
     phase("1 environment")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1776,44 +2142,57 @@ def main() -> int:
 
     phase("3 kernel checks")
     results = kernel_checks(torch, seq, args, cfg, dev)
+    fast_shape_checks(torch, seq, data_root, dev, results)
 
     phase("4 card vs CPU agreement on a small batch")
     print("  -- chunked shade (--no_fused_train)", flush=True)
     agreement_check(torch, seq, args, cfg, dev, fused_train=False)
     print("  -- fused training shade", flush=True)
     agreement_check(torch, seq, args, cfg, dev, fused_train=True)
+    print("  -- fused training shade, the -f scene at its shapes (10 frames x 8 rays)",
+          flush=True)
+    fast_args, fast_cfg = fast_config(data_root)
+    agreement_check(torch, seq, fast_args, fast_cfg, dev, fused_train=True, pairs=BATCH_SIZE,
+                    rays=int(fast_args["num_sample"]))
     print("  -- render", flush=True)
     render_agreement(torch, seq, args, cfg, dev)
 
-    phase(f"5 the slice: run_training, {STEPS} steps fused, {LAYER_STEPS} layer by layer, "
-          f"{LAYER_STEPS} with the chunked shade")
+    phase(f"5 the slice: run_training, {STEPS} steps fused and validated, resumed for 2, "
+          f"{LAYER_STEPS} layer by layer, {LAYER_STEPS} with the chunked shade, 2 at -f, "
+          f"{LAYER_STEPS} with two hands")
     from hold_tpu_torch.utils.config import Cfg
 
-    # the defaults, with meshing: two steps an epoch, so that the cadence
-    # meshes at epoch 3 after the last step, on its worker thread
-    fused_launches, fused = slice_run(torch, seq, Cfg({**args, "no_meshing": False,
-                                                       "tempo_len": 2 * BATCH_SIZE}),
-                                      cfg, dev, STEPS)
+    # the defaults, with meshing and validation: two steps an epoch, so that
+    # the cadence meshes at epoch 3 after the last step, on its worker
+    # thread, and checkpoints and validates there
+    fused_args = Cfg({**args, "no_meshing": False, "tempo_len": 2 * BATCH_SIZE, "no_vis": False,
+                      "eval_every_epoch": 3})
+    fused_launches, fused = slice_run(torch, seq, fused_args, cfg, dev, STEPS)
+    loop_outputs(fused[3].log_dir, STEPS, val=True)
     print("  -- canonical meshing and the object's mesh state", flush=True)
     meshing_checks(torch, seq, args, dev, fused)
     del fused
-    launches = {
-        "fused": fused_launches,
-        "layer": slice_run(torch, seq, Cfg({**args, "no_fused_sampler": True,
-                                            "exp_key": "chip_smoke_layer"}),
-                           cfg, dev, LAYER_STEPS)[0],
-        "chunked": slice_run(torch, seq, Cfg({**args, "no_fused_train": True,
-                                              "exp_key": "chip_smoke_chunked"}),
-                             cfg, dev, LAYER_STEPS)[0],
-    }
+    print("  -- resume", flush=True)
+    launches = {"fused": fused_launches, "resume": resume_checks(torch, seq, fused_args, cfg, dev)}
+    launches["layer"] = slice_run(torch, seq, Cfg({**args, "no_fused_sampler": True,
+                                                   "exp_key": "chip_smoke_layer"}),
+                                  cfg, dev, LAYER_STEPS)[0]
+    launches["chunked"] = slice_run(torch, seq, Cfg({**args, "no_fused_train": True,
+                                                     "exp_key": "chip_smoke_chunked"}),
+                                    cfg, dev, LAYER_STEPS)[0]
     # the chunked shade once more with every chunk's graph kept, for its peak
     # memory beside the recomputing default's
     slice_run(torch, seq, Cfg({**args, "no_fused_train": True, "no_remat": True,
                                "exp_key": "chip_smoke_no_remat"}), cfg, dev, 2)
+    launches["fast"] = fast_run(torch, seq, data_root, dev)
+    launches["two_hands"] = two_hand_run(torch, args, cfg, dev, launches)
 
     phase(f"6 the render slice: render_cli, {RENDER_FRAMES} frames at render_downsample "
           f"{RENDER_DOWNSAMPLE}")
     launches["render"] = render_slice(torch, seq, data_root, args, dev)
+
+    phase("7 evaluation against the synthetic ground truth")
+    evaluation(torch, data_root, args, cfg, dev)
     print(f"  total {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
@@ -1829,7 +2208,7 @@ def main() -> int:
             **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
                                  "normal_p99", "split_ms", "wrapper_ms", "search", "support",
                                  "buffers", "brute_force_bound_ms", "library_call",
-                                 "library_note") if k in r},
+                                 "library_note", "fast") if k in r},
         })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,7 @@ class SequenceData:
         self.extrinsics_all = np.stack(extr)
         self.scale = float(1.0 / scale_mats[0][0, 0])
         self.hand_ids = [k for k in ("right", "left") if k in self.entities]
+        self.case = ""  # the sequence's name, for a sequence read from disk
         self.img_paths: list = []  # the frames' files, for a sequence read from disk
 
     @classmethod
@@ -85,6 +86,7 @@ class SequenceData:
         else:
             masks = np.zeros(images.shape[:3], np.uint8)
         seq = cls(images, masks, data, num_sample=num_sample)
+        seq.case = case
         seq.img_paths = img_paths
         return seq
 

@@ -12,6 +12,7 @@ Run: python -m hold_tpu_torch.data.synthetic --out ./data/toy --frames 12
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 
 import numpy as np
@@ -126,12 +127,24 @@ def _aa2mat(aa) -> np.ndarray:
 
 
 def generate_sequence(out_dir: str | None = None, n_frames: int = 12,
-                      img_hw: tuple[int, int] = (240, 320), two_hands: bool = False) -> dict:
+                      img_hw: tuple[int, int] = (240, 320), two_hands: bool = False,
+                      seed: int = 0, pose_noise: float = 0.0,
+                      pose_noise_mode: str = "all") -> dict:
     """Render the synthetic hand+object sequence.
 
     Returns {"images": (N,H,W,3) uint8 RGB, "masks": (N,H,W) uint8,
     "data": the data.npy dict}.  With ``out_dir`` it also writes
-    ``out_dir/build/{image,mask}/*.png``, ``data.npy`` and ``corres.txt``."""
+    ``out_dir/build/{image,mask}/*.png``, ``data.npy`` and ``corres.txt``.
+
+    ``pose_noise`` > 0 simulates a real capture's noisy initialisation:
+    images and masks come from the true poses, the ``entities`` that
+    training starts from get Gaussian noise of this std (radians on
+    rotations, ``pose_noise`` * 0.05 m on translations, drawn from
+    ``RandomState(seed + 7)``), and the truth is kept as ``entities_gt`` for
+    evaluation.  ``pose_noise_mode`` "all" perturbs the hand articulation
+    and orientation, the translations and the object's rotation; "trans"
+    only what pose refinement optimises (the hands' translations, the
+    object's rotation and translation)."""
     H, W = img_hw
     K = np.eye(4, dtype=np.float64)
     f = 1.2 * W
@@ -213,12 +226,30 @@ def generate_sequence(out_dir: str | None = None, n_frames: int = 12,
         for _, v, fc, col, sid in draw_list:
             _raster_mesh(img, masks[i], world_mat[:3], v, fc, col, sid, cam_pos)
 
+    entities_gt = None
+    if pose_noise > 0.0:
+        entities_gt = copy.deepcopy(entities)
+        nrng = np.random.RandomState(seed + 7)
+        for h in hands:
+            e = entities[h]
+            if pose_noise_mode == "all":
+                e["hand_poses"] = (e["hand_poses"] + nrng.randn(*e["hand_poses"].shape)
+                                   * pose_noise).astype(np.float32)
+            e["hand_trans"] = (e["hand_trans"] + nrng.randn(*e["hand_trans"].shape)
+                               * pose_noise * 0.05).astype(np.float32)
+        noise = np.concatenate([nrng.randn(n_frames, 3) * pose_noise,
+                                nrng.randn(n_frames, 3) * pose_noise * 0.05], axis=1)
+        entities["object"]["object_poses"] = (entities["object"]["object_poses"]
+                                              + noise).astype(np.float32)
+
     data = {
         "cameras": cameras,
         "entities": entities,
         "scene_bounding_sphere": 3.0,
         "normalize_shift": np.zeros(3, np.float32),
     }
+    if entities_gt is not None:
+        data["entities_gt"] = entities_gt
     seq = {"images": images, "masks": masks, "data": data}
     if out_dir is not None:
         write_build(out_dir, seq)
@@ -249,8 +280,16 @@ def main():
     ap.add_argument("--height", type=int, default=240)
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--two_hands", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pose_noise", type=float, default=0.0,
+                    help="std of Gaussian noise on the init poses written to data.npy "
+                         "(the truth kept as entities_gt for evaluation)")
+    ap.add_argument("--pose_noise_mode", default="all", choices=("all", "trans"),
+                    help="'trans' perturbs only what pose refinement optimises")
     args = ap.parse_args()
-    generate_sequence(args.out, args.frames, (args.height, args.width), args.two_hands)
+    generate_sequence(args.out, args.frames, (args.height, args.width), args.two_hands,
+                      seed=args.seed, pose_noise=args.pose_noise,
+                      pose_noise_mode=args.pose_noise_mode)
     print(f"Wrote synthetic sequence to {os.path.join(args.out, 'build')}")
 
 

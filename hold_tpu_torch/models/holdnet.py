@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..mano.server import build_mano_server
+from ..ops.fused_query import supports_fused_query
 from ..ops.fused_render import supports_fused_render
 from ..ops.knn import tile_order
 from ..ops.point_mesh import (
@@ -58,7 +59,6 @@ from .nodes import (
     object_node_forward,
     object_node_render,
     object_node_sample_z,
-    use_fused_query,
 )
 from .object_model import build_object_server
 from .specs import CLASS_IDS, MANO_SPECS, OBJECT_SPECS, TIME_CODE_DIM
@@ -144,10 +144,14 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
                       "sub_tile_order": tile_order(sub_ops[nid][0] @ servers[nid].verts_c[0])}
         implicit = implicit_net_shapes(opt_model["implicit_network"], specs)
         rendering = rendering_net_shapes(render_opt, specs)
+        # the JAX package also asks 8 rays x N_samples_eval to split into
+        # whole 512-point slices, as its TPU kernel does (and so queries
+        # layer by layer at -f's 32 samples); the CUDA kernel takes any
+        # sample count, with a partial last tile
         plans[nid] = NodePlans(
             implicit=implicit, rendering=rendering,
             sampler=sampler_cfg, barf_cfg=barf_cfg, class_id=CLASS_IDS[nid],
-            fused_query=fused_sampler and use_fused_query(implicit, sampler_cfg),
+            fused_query=fused_sampler and supports_fused_query(implicit),
             fused_render=fused_render and supports_fused_render(implicit, rendering),
             fused_train=(fused_train and fused_render
                          and supports_fused_render(implicit, rendering)),
@@ -168,8 +172,8 @@ def init_scene_params(gen: torch.Generator, scene: Scene, scene_data: dict) -> d
     entities = scene_data["entities"]
     opt_model = scene.opt_model
 
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32)
+    def f32(x):  # a copy: Adam updates the tables in place, the entities stay as read
+        return torch.tensor(np.asarray(x), dtype=torch.float32)
 
     params = {}
     for nid in scene.node_ids:

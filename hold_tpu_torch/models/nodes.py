@@ -47,7 +47,6 @@ from ..ops.fused_query import (
     fused_hand_sampler_sdf_z,
     fused_object_sampler_sdf_z,
     pack_trunk_weights,
-    supports_fused_query,
 )
 from ..ops.fused_render import (
     frame_bias0,
@@ -91,16 +90,6 @@ class NodePlans(NamedTuple):
     # only: of the MANO vertices and of the subdivided mesh's
     tile_order: torch.Tensor | None = None
     sub_tile_order: torch.Tensor | None = None
-
-
-def use_fused_query(implicit: dict, sampler: SamplerConfig) -> bool:
-    """The JAX package's rule for the fused sampler query (its nodes.py
-    ``_use_fused_query`` without the TPU check): a supported trunk, and
-    8 rays x N_samples_eval splitting into whole 512-point slices as the TPU
-    kernel requires.  The CUDA kernel has no such tile constraint; keeping
-    the rule makes the port compute the JAX package's math in every
-    configuration."""
-    return supports_fused_query(implicit) and (8 * sampler.N_samples_eval) % 512 == 0
 
 
 def _flat_per_point(x: torch.Tensor, n: int) -> torch.Tensor:

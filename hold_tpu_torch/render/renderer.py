@@ -54,7 +54,8 @@ def render_frame(params, scene, frame_batch: dict, pixel_per_batch: int = 4096,
     maps as (H, W[, C]) numpy arrays.  Pass a ``chunk_fn``
     (``make_chunk_renderer``) to time the phases or reuse one across frames.
     The fused render's weight packs are built once for the frame.  The last
-    chunk is padded with copies of the last pixel."""
+    chunk holds the pixels that are left (the JAX package pads it to a full
+    chunk, for its compiled shapes)."""
     if chunk_fn is None:
         chunk_fn = make_chunk_renderer(scene)
     with torch.no_grad():
@@ -63,9 +64,6 @@ def render_frame(params, scene, frame_batch: dict, pixel_per_batch: int = 4096,
     H, W = frame_batch["img_hw"]
     uv = frame_batch["uv"]  # (1, HW, 2)
     n_pix = uv.shape[1]
-    pad = (-n_pix) % pixel_per_batch
-    if pad:
-        uv = np.concatenate([uv, np.repeat(uv[:, -1:], pad, axis=1)], axis=1)
     base = {
         "frame_idx": torch.as_tensor(np.asarray(frame_batch["frame_idx"]), dtype=torch.long,
                                      device=dev),
@@ -81,7 +79,7 @@ def render_frame(params, scene, frame_batch: dict, pixel_per_batch: int = 4096,
             outs.setdefault(k, []).append(v)
     result = {}
     for k, chunks in outs.items():
-        flat = torch.cat(chunks, dim=0)[:n_pix].cpu().numpy()
+        flat = torch.cat(chunks, dim=0).cpu().numpy()
         result[k] = flat.reshape(H, W) if flat.ndim == 1 else flat.reshape(H, W, -1)
     return result
 

@@ -55,8 +55,8 @@ def main(argv=None) -> list[dict]:
     args = build_argparser().parse_args(argv)
     device = resolve_device(args.device)
     seq = SequenceData.from_build_dir(args.case, args.data_root)
-    params, scene = load_experiment(args.exp, seq, device,
-                                    fused_render=not args.no_fused_render)
+    params, scene, _ = load_experiment(args.exp, seq, device,
+                                       fused_render=not args.no_fused_render)
     out_dir = args.out or os.path.join(args.exp, "renders")
     norm_dir = os.path.join(args.export_root, os.path.basename(args.exp.rstrip("/")), "normal")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,4 +1,4 @@
-"""Training entry point: python -m hold_tpu_torch.train --case <seq> --no_vis
+"""Training entry point: python -m hold_tpu_torch.train --case <seq> [flags]
 
 Counterpart of hold_tpu/train.py on PyTorch: each step runs the error-bound
 sampler under ``torch.no_grad()`` (its queries through the fused query
@@ -8,22 +8,27 @@ training shade's kernels; ``--no_fused_train`` runs the chunked shade with
 its double backward instead, each chunk recomputed in the backward unless
 ``--no_remat``) and one Adam step.  Adam has the
 reference's two learning-rate groups (pose tables at 0.1x lr); the object
-scale stays fixed.  Scalars go to
-``<log_root>/<exp_key>/metrics.jsonl`` (``utils/logger.py``), and the final
-state and model config to ``checkpoints/last.pt``, which
-``utils/checkpoint.load_experiment`` reads back for rendering.  Every third
-epoch (unless ``--no_meshing``) the nodes' canonical meshes are extracted on
-a worker thread from a copy of the parameters, written to
-``mesh_cano/mesh_cano_<node>_step_<step>.obj`` and ``misc/<step>.npy``, and
-the object's mesh state (its sparse and eikonal terms) is adopted at the
-next step boundary.  Validation renders, resume, --load_pose and
---shape_init are not ported yet.  It runs on the card unless asked for the
-CPU (``--device cpu``, ``device="cpu"``).
+scale stays fixed.  The next batch is drawn on a worker thread while a step
+runs.  Scalars go to ``<log_root>/<exp_key>/metrics.jsonl``
+(``utils/logger.py``).  Every ``--eval_every_epoch``-th epoch and at the end
+the parameters, Adam's state, the step and the model config go to
+``checkpoints/step_<step>.pt`` with ``last.pt`` pointing at it
+(``utils/checkpoint.py``), and, unless ``--no_vis``, one frame is rendered
+(``val/psnr``, ``visuals/val_<frame>_<step>.png``).  A run whose experiment
+already holds a checkpoint resumes from it; ``--load_ckpt`` starts from
+another run's parameters at step 0, ``--load_pose`` takes its pose tables
+and ``--shape_init`` the hands' implicit nets of the newest checkpoint of
+``<log_root>/<shape_init>``.  Every third epoch (unless ``--no_meshing``)
+the nodes' canonical meshes are extracted on a worker thread from a copy of
+the parameters, written to ``mesh_cano/mesh_cano_<node>_step_<step>.obj`` and
+``misc/<step>.npy``, and the object's mesh state (its sparse and eikonal
+terms) is adopted at the next step boundary.  ``-f`` shortens the sampler
+(16 / 32 / 8 samples, 2 rounds) and meshes at once.  It runs on the card
+unless asked for the CPU (``--device cpu``, ``device="cpu"``).
 """
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -43,11 +48,51 @@ from .models.holdnet import (
     sample_step_draws,
 )
 from .models.losses import compute_losses
-from .utils.checkpoint import save_misc
+from .render.renderer import make_chunk_renderer, outputs_to_panel, render_frame
+from .utils.checkpoint import (
+    latest_checkpoint,
+    load_checkpoint,
+    load_params_subset,
+    save_checkpoint,
+    save_misc,
+    training_state,
+)
 from .utils.config import parse_args, resolve_device
 from .utils.convert import detached_copy, flatten_params
 from .utils.logger import StepTimer, Tracker
 from .utils.metrics import psnr
+
+
+# ``-f`` (fast dev run): the sampler's samples a ray and rounds
+FAST_SAMPLER = {"N_samples": 16, "N_samples_eval": 32, "N_samples_extra": 8,
+                "max_total_iters": 2}
+
+
+def pose_subset(path: tuple) -> bool:
+    """``--load_pose``: the pose tables and the object's scale."""
+    return "tables" in path or path[-1:] == ("obj_scale",)
+
+
+def hand_shape_subset(path: tuple) -> bool:
+    """``--shape_init``: the hands' implicit nets."""
+    return len(path) >= 2 and path[0] in ("right", "left") and path[1] == "implicit"
+
+
+def prefetch_batches(seq, rng: np.random.RandomState, batch_size: int, offset: int,
+                     num_sample: int):
+    """``seq.sample_tempo_batch(rng, ...)`` batches in the order of the
+    draws, each drawn on a worker thread while the caller works on the one
+    before (numpy only: the thread touches no device).  The thread owns
+    ``rng`` until the generator is closed."""
+    def draw():
+        return seq.sample_tempo_batch(rng, batch_size, offset=offset, num_sample=num_sample)
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(draw)
+        while True:
+            batch = pending.result()
+            pending = pool.submit(draw)
+            yield batch
 
 
 def optimizer_for(args, params) -> torch.optim.Adam:
@@ -147,9 +192,18 @@ def run_meshing(snapshot, scene, seq, log_dir: str, step: int, res_scale: int = 
 
 def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | None = None,
                  device=None):
-    """Train for ``max_steps`` (default args.total_step) steps on ``device``
+    """Train until step ``max_steps`` (default args.total_step) on ``device``
     (default ``args.device``, else the card).  Returns (params, scene,
-    mesh_state, tracker, timer).
+    mesh_state, tracker, timer, optimizer).
+
+    A run whose experiment (``<log_root>/<exp_key>``) holds a checkpoint
+    resumes from it: the parameters, Adam's state when the checkpoint has
+    one that fits (else the parameters alone) and the step; the batch and
+    sampler streams start afresh, as in the reference.  Checkpoints and
+    validation renders (unless ``args.no_vis``) come at every
+    ``eval_every_epoch``-th epoch boundary and the last one; a final
+    checkpoint at the end unless that step was just saved.  A validation
+    that fails is logged and training goes on, as in the reference.
 
     Meshing (unless ``args.no_meshing``) runs at every third epoch boundary
     on one worker thread; the object's new mesh state is adopted at the
@@ -159,16 +213,14 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     ``args.fast_dev_run`` meshes at every epoch boundary, at once, at a
     quarter of the resolutions.  A meshing that fails is logged and leaves
     the state as it was, as in the reference: it never ends training."""
-    for flag in ("load_ckpt", "load_pose", "shape_init"):
-        if args.get(flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
-    if not args.get("no_vis"):
-        raise NotImplementedError("validation renders are not ported yet: pass --no_vis")
     device = resolve_device(device or args.get("device"))
     if seq is None:
         seq = SequenceData.from_build_dir(args.case, args.data_root, num_sample=args.num_sample)
     opt_model = dict(cfg["model"])
     opt_model["scene_bounding_sphere"] = seq.scene_bounding_sphere
+    fast = bool(args.get("fast_dev_run", False))
+    if fast:
+        opt_model["ray_sampler"] = dict(opt_model["ray_sampler"], **FAST_SAMPLER)
     seed = int(args.get("seed", 0))
     scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
                         fused_sampler=not args.get("no_fused_sampler", False),
@@ -185,19 +237,80 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
              f"frames={seq.n_frames} device={device} fused sampler={fused} "
              f"fused shade={shade}")
 
+    start_step, opt_state, resumed = 0, None, False
+    if args.get("load_ckpt"):
+        params = load_checkpoint(args.load_ckpt, {"params": params})["params"]
+        log.info(f"loaded weights from {args.load_ckpt}")
+    else:
+        last = latest_checkpoint(tracker.log_dir)
+        if last:
+            state = load_checkpoint(last, {"params": params, "optimizer": None, "step": 0})
+            params, opt_state, start_step = state["params"], state["optimizer"], state["step"]
+            resumed = True
+            log.info(f"resuming from {last} at step {start_step}")
+    if args.get("load_pose") and start_step == 0:
+        params = load_params_subset(args.load_pose, params, pose_subset)
+        log.info(f"loaded pose tables from {args.load_pose}")
+    elif args.get("load_pose"):
+        # the resumed tables already hold the pose init and its training
+        log.info(f"resume at step {start_step}: NOT re-applying --load_pose")
+    if args.get("shape_init"):
+        src = latest_checkpoint(os.path.join(args.log_root, args.shape_init))
+        if src:
+            params = load_params_subset(src, params, hand_shape_subset)
+            log.info(f"hand shape init from {src}")
+        else:
+            log.warning(f"--shape_init {args.shape_init}: no checkpoint found")
+
     optimizer = optimizer_for(args, params)
+    if opt_state is not None:
+        try:
+            optimizer.load_state_dict(opt_state)
+        except ValueError as e:  # another parameter set: the parameters alone
+            log.warning(f"optimizer state not restored ({e}); resuming the parameters only")
     timer = StepTimer()
     train_step = make_train_step(scene, optimizer, timer)
     batch_size = cfg["dataset"]["train"]["batch_size"]
     steps_per_epoch = max(args.tempo_len // batch_size, 1)
     total_steps = max_steps or args.total_step
-    np_rng = np.random.RandomState(seed)
     gen = torch.Generator(device).manual_seed(1234)
     log_every = max(int(args.get("log_every", 1)), 1)
+    eval_every = max(int(args.get("eval_every_epoch", 6)), 1)
+    vis = not args.get("no_vis", False)
+    val_rng = np.random.RandomState(seed + 7919)  # the batches' stream is the thread's
+    val_chunk_fn = None
+    saved_at = start_step if resumed else None
+
+    def checkpoint(at_step):
+        timer.start("checkpoint")
+        path = save_checkpoint(tracker.log_dir, at_step,
+                               training_state(params, optimizer, at_step, opt_model))
+        timer.stop("checkpoint")
+        log.info(f"checkpoint {path}")
+
+    @torch.no_grad()
+    def validate(at_step, ep):
+        """Render one random frame (the reference's validation step)."""
+        nonlocal val_chunk_fn
+        timer.start("val_render")
+        try:
+            if val_chunk_fn is None:
+                val_chunk_fn = make_chunk_renderer(scene)
+            vidx = int(val_rng.randint(seq.n_frames))
+            fb = seq.full_frame_batch(vidx, downsample=int(args.get("render_downsample", 2)))
+            res = render_frame(params, scene, fb, pixel_per_batch=4096, chunk_fn=val_chunk_fn)
+            gt = fb["gt_rgb"].reshape(*fb["img_hw"], 3)
+            mse = float(np.mean((res["rgb"] - gt) ** 2))
+            val_psnr = -10.0 * np.log10(max(mse, 1e-12))
+            tracker.log_dict({"val/psnr": val_psnr}, step=at_step, epoch=ep)
+            tracker.log_image(f"val_{vidx:04d}", outputs_to_panel(res, gt_rgb=gt), at_step)
+            log.info(f"val render frame {vidx}: psnr {val_psnr:.2f}")
+        except Exception:  # validation must never end training (hold_tpu/train.py:443)
+            log.warning("val render failed", exc_info=True)
+        timer.stop("val_render")
 
     meshing = not args.get("no_meshing", False)
-    sync_meshing = bool(args.get("fast_dev_run", False))
-    res_scale = 4 if sync_meshing else 1
+    res_scale = 4 if fast else 1
     mesher = ThreadPoolExecutor(max_workers=1)
     mesh_future, pending = None, None
 
@@ -216,17 +329,17 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
         snapshot, at_step = snap
         return run_meshing(snapshot, scene, seq, tracker.log_dir, at_step, res_scale)
 
+    batches = prefetch_batches(seq, np.random.RandomState(seed), batch_size, args.offset,
+                               args.num_sample)
     t_start = time.time()
     try:
-        for step in range(total_steps):
+        for step in range(start_step, total_steps):
             epoch = step // steps_per_epoch
             timer.start("data")
-            batch_np = seq.sample_tempo_batch(np_rng, batch_size, offset=args.offset,
-                                              num_sample=args.num_sample)
-            batch = batch_to_device(batch_np, device)
+            batch = batch_to_device(next(batches), device)
             timer.stop("data")
             aux = train_step(params, batch, mesh_state, gen, step, epoch)
-            if step == 0 and total_steps > 1:
+            if step == start_step and total_steps - start_step > 1:
                 # phase averages leave out the warm-up step
                 timer.totals.clear()
                 timer.counts.clear()
@@ -244,11 +357,13 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
                 if pending is not None:
                     mesh_future, pending = mesher.submit(mesh_at, pending), None
                 timer.stop("meshing")
+            if done % steps_per_epoch:
+                continue
             ep = done // steps_per_epoch
-            if meshing and done % steps_per_epoch == 0 and (ep % 3 == 0 or sync_meshing):
+            if meshing and (ep % 3 == 0 or fast):
                 timer.start("meshing")
                 snap = (meshing_snapshot(params, scene), done)
-                if sync_meshing:
+                if fast:
                     mesh_state = adopt(lambda: mesh_at(snap), mesh_state)
                 elif mesh_future is None:
                     mesh_future = mesher.submit(mesh_at, snap)
@@ -257,25 +372,26 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
                     log.warning(f"meshing still running at epoch {ep}; queued the snapshot of "
                                 f"step {done} in place of any queued before")
                 timer.stop("meshing")
+            if ep % eval_every == 0 or done >= total_steps:
+                checkpoint(done)
+                saved_at = done
+                if vis:
+                    validate(done, ep)
         # at the end: the meshing in flight, then the snapshot queued behind it
         if mesh_future is not None:
             mesh_state = adopt(mesh_future.result, mesh_state)
         if pending is not None:
             mesh_state = adopt(lambda: mesh_at(pending), mesh_state)
     finally:
+        batches.close()
         mesher.shutdown(wait=True)
 
-    ckpt_dir = os.path.join(tracker.log_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
-    torch.save(
-        {"params": {k: v.detach().cpu() for k, v in flatten_params(params).items()},
-         "optimizer": optimizer.state_dict(), "step": total_steps,
-         "model": json.loads(json.dumps(opt_model))},
-        os.path.join(ckpt_dir, "last.pt"),
-    )
-    log.info(f"done: {total_steps} steps in {time.time() - t_start:.1f}s; "
+    final = max(total_steps, start_step)
+    if saved_at != final:
+        checkpoint(final)
+    log.info(f"done: steps {start_step}..{final} in {time.time() - t_start:.1f}s; "
              f"phases: {timer.summary()}")
-    return params, scene, mesh_state, tracker, timer
+    return params, scene, mesh_state, tracker, timer, optimizer
 
 
 def main():

@@ -152,25 +152,35 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Cfg:
 
 
 def build_argparser() -> argparse.ArgumentParser:
-    """Training CLI flags — surface parity with code/src/utils/parser.py:13-70."""
+    """Training CLI flags — surface parity with code/src/utils/parser.py:13-70
+    and the JAX package's, without its multi-host and remote-tracker flags
+    (``--num_devices``, ``--coordinator``, ``--num_processes``,
+    ``--process_id``, ``--remote_track``), which the port does not have."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", type=str, default="")
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--case", type=str, required=True)
     p.add_argument("--shape_init", type=str, default="")
     p.add_argument("--mute", action="store_true")
+    p.add_argument("--agent_id", type=int, default=0)  # declared, unused (as in the reference)
     p.add_argument("--num_sample", type=int, default=128)
     p.add_argument("--exp_key", type=str, default="")
+    p.add_argument("--debug", action="store_true")  # declared, unused (as in the reference)
     p.add_argument("--num_epoch", type=int, default=200)
     p.add_argument("--freeze_pose", action="store_true")
     p.add_argument("--barf_s", type=int, default=1000)
     p.add_argument("--barf_e", type=int, default=10000)
+    p.add_argument("--no_barf", action="store_true")  # declared, unused (as in the reference)
     p.add_argument("--lr", type=float, default=1.0e-4)
     p.add_argument("--offset", type=int, default=1)
     p.add_argument("--no_meshing", action="store_true")
     p.add_argument("--no_vis", action="store_true")
+    p.add_argument("--render_downsample", type=int, default=2)
+    p.add_argument("-f", "--fast", dest="fast_dev_run", action="store_true")
+    p.add_argument("--infer_ckpt", type=str, default="")  # declared, unused (as in the reference)
     p.add_argument("--load_ckpt", type=str, default="")
     p.add_argument("--load_pose", type=str, default="")
+    p.add_argument("--eval_every_epoch", type=int, default=6)
     p.add_argument("--tempo_len", type=int, default=2000)
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--log_root", type=str, default="./logs")
@@ -196,7 +206,9 @@ def resolve_device(device=None) -> torch.device:
 
 def parse_args(argv=None):
     """Parse CLI + config; inject the data's scene bounding sphere like the
-    reference does at code/src/utils/parser.py:77-103."""
+    reference does at code/src/utils/parser.py:77-103.  ``-f`` (fast dev
+    run) validates and checkpoints every epoch of 10 steps of 8 rays a frame
+    and logs every step; ``run_training`` also shortens the sampler."""
     args = Cfg(vars(build_argparser().parse_args(argv)))
     cfg = load_config(args.config or None)
     # the proposal net (sampler surrogate) is not ported yet: the port's only
@@ -208,6 +220,12 @@ def parse_args(argv=None):
     if os.path.exists(data_p):
         data = np.load(data_p, allow_pickle=True).item()
         cfg["model"]["scene_bounding_sphere"] = float(data["scene_bounding_sphere"])
+
+    if args.fast_dev_run:
+        args.eval_every_epoch = 1
+        args.num_sample = 8
+        args.tempo_len = 50
+        args.log_every = 1
 
     args.total_step = int(
         args.num_epoch * args.tempo_len / cfg["dataset"]["train"]["batch_size"]

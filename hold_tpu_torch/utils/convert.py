@@ -25,30 +25,32 @@ def _leaf(x, path, device) -> torch.Tensor:
     return t.requires_grad_(path[-1] not in FROZEN)
 
 
-def _walk(tree, path, leaf):
+def map_params(tree, path, leaf):
+    """The tree with each leaf replaced by ``leaf(x, path)``, ``path`` the
+    tuple of keys and list indices down to it."""
     if isinstance(tree, dict):
-        return {k: _walk(v, path + (k,), leaf) for k, v in tree.items()}
+        return {k: map_params(v, path + (k,), leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_walk(v, path + (i,), leaf) for i, v in enumerate(tree)]
+        return [map_params(v, path + (i,), leaf) for i, v in enumerate(tree)]
     return leaf(tree, path)
 
 
 def params_from_jax(jax_params, device=None) -> dict:
     """Convert a JAX params pytree (arrays as numpy or anything
     ``np.asarray`` takes) into the port's parameter tree."""
-    return _walk(jax_params, (), lambda x, p: _leaf(x, p, device))
+    return map_params(jax_params, (), lambda x, p: _leaf(x, p, device))
 
 
 def leaf_params(tree, device=None) -> dict:
     """Make every tensor of a freshly initialised tree a leaf on ``device``
     (trainable unless frozen)."""
-    return _walk(tree, (), lambda t, p: t.detach().to(device).requires_grad_(p[-1] not in FROZEN))
+    return map_params(tree, (), lambda t, p: t.detach().to(device).requires_grad_(p[-1] not in FROZEN))
 
 
 def detached_copy(tree) -> dict:
     """A copy of a parameter tree (or subtree) that later in-place updates
     of the live tensors do not reach."""
-    return _walk(tree, (), lambda t, p: t.detach().clone())
+    return map_params(tree, (), lambda t, p: t.detach().clone())
 
 
 def flatten_params(params, prefix: str = "") -> dict[str, torch.Tensor]:

@@ -1,5 +1,6 @@
-"""Experiment tracking: scalars to ``<log_root>/<exp_key>/metrics.jsonl``, the
-run's arguments to ``args.json`` and its log to ``train.log`` (the layout of
+"""Experiment tracking: scalars to ``<log_root>/<exp_key>/metrics.jsonl``,
+images to ``visuals/``, the run's arguments to ``args.json`` and its log to
+``train.log`` (the layout of
 hold_tpu/utils/logger.py, kept so that tools written for either package find
 the same files; the remote sink is not ported)."""
 
@@ -71,6 +72,20 @@ class Tracker:
                 continue
         self._scalars.write(json.dumps(rec) + "\n")
         self._scalars.flush()
+
+    def log_image(self, name: str, img: np.ndarray, step: int) -> str:
+        """Write ``img`` (H, W, 3) RGB, uint8 or floats in [0, 1], as
+        ``visuals/<name>_<step, 9 digits>.png``; returns the path."""
+        import cv2
+
+        arr = np.asarray(img)
+        if arr.dtype != np.uint8:
+            arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+        out_p = os.path.join(self.log_dir, "visuals", f"{name}_{step:09d}.png")
+        os.makedirs(os.path.dirname(out_p), exist_ok=True)
+        if not cv2.imwrite(out_p, np.ascontiguousarray(arr[..., ::-1])):
+            raise OSError(f"cv2 could not write {out_p}")
+        return out_p
 
     def close(self) -> None:
         self._scalars.close()

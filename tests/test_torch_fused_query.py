@@ -240,9 +240,11 @@ def test_fused_sampler_configurations(toy):
     narrow = copy.deepcopy(model)
     narrow["implicit_network"]["dims"] = [64] * 8
     assert not any(p.fused_query for p in thn.build_scene(narrow, args, sd, "cpu").plans.values())
+    # 8 x 16 points, not whole 512-point slices: the JAX package queries layer
+    # by layer there, the CUDA kernel takes it with a partial last tile
     short = copy.deepcopy(model)
-    short["ray_sampler"]["N_samples_eval"] = 16  # 8 x 16 points: not whole 512-point slices
-    assert not any(p.fused_query for p in thn.build_scene(short, args, sd, "cpu").plans.values())
+    short["ray_sampler"]["N_samples_eval"] = 16
+    assert all(p.fused_query for p in thn.build_scene(short, args, sd, "cpu").plans.values())
     # the trunk products of the packed layout, the head, plus the warps
     flops = tfq.sampler_query_flops_per_step(fused, 1280)
     trunk = 2.0 * 483_584 * (64 * 2) * 1280  # MACs a point x points per step, one node

@@ -460,9 +460,9 @@ def test_render_cli_from_a_training_run(toy, tmp_path, monkeypatch):
                 "log_every": 1, "no_meshing": True, "no_vis": True, "mute": True,
                 "exp_key": "run", "log_root": str(tmp_path), "seed": 0, "total_step": 1,
                 "lr": 1e-3, "data_root": toy["root"]})
-    params, _, _, _, _ = run_training(args, cfg, seq=toy["seq"], device="cpu")
+    params, *_ = run_training(args, cfg, seq=toy["seq"], device="cpu")
     exp = str(tmp_path / "run")
-    loaded, scene = load_experiment(exp, toy["seq"], "cpu")
+    loaded, scene, _ = load_experiment(exp, toy["seq"], "cpu")
     assert torch.equal(loaded["right"]["tables"]["pose"], params["right"]["tables"]["pose"])
     assert not any(p.fused_render for p in scene.plans.values())  # 64-wide nets
 

@@ -150,7 +150,7 @@ def test_run_training_meshes_and_adopts_the_object_state(toy_seq, tmp_path, fast
                 "tempo_len": 1, "offset": 1, "log_every": 1, "no_vis": True, "mute": True,
                 "exp_key": "mesh", "log_root": str(tmp_path), "seed": 0, "total_step": steps,
                 "fast_dev_run": fast_dev_run})
-    _, scene, mesh_state, tracker, _ = run_training(args, cfg, seq=toy_seq, device="cpu")
+    _, scene, mesh_state, tracker, _, _ = run_training(args, cfg, seq=toy_seq, device="cpu")
     assert float(mesh_state["valid"]) == 1.0
     at = [1, 2] if fast_dev_run else [3]
     log_dir = tracker.log_dir

@@ -89,6 +89,24 @@ def _tparams(toy):
     return params_from_jax(jax.device_get(toy["jparams"]))
 
 
+def jax_params_of(tparams, jscene, scene_data):
+    """The port's params ``tparams`` in the JAX package's tree for
+    ``jscene`` (its init traced for the tree and shapes, not run: running it
+    compiles one executable a shape).  Every JAX leaf must have a port
+    tensor of its path, shape and dtype."""
+    flat = flatten_params(tparams)
+    shapes = jax.eval_shape(lambda k: jhn.init_scene_params(k, jscene, scene_data),
+                            jax.random.PRNGKey(0))
+
+    def leaf(path, want):
+        got = flat["/".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)]
+        got = got.detach().numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype, (path, got.shape, want)
+        return jnp.asarray(got)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
 def _draws_from_jax_keys(rng, scene, B, P):
     """The random numbers holdnet_forward draws from ``rng``, in the port's
     draws layout, by walking JAX's key tree the way holdnet_forward does."""
@@ -225,7 +243,10 @@ def test_port_entry_points_import_no_jax():
             "hold_tpu_torch.render.renderer",
             "hold_tpu_torch.utils.checkpoint", "hold_tpu_torch.utils.logger",
             "hold_tpu_torch.utils.mesh", "hold_tpu_torch.models.specs",
-            "hold_tpu_torch.mano.model_data", "chip_smoke")
+            "hold_tpu_torch.mano.model_data", "hold_tpu_torch.evaluate",
+            "hold_tpu_torch.summarize_metrics", "hold_tpu_torch.eval.io_pred",
+            "hold_tpu_torch.eval.icp", "hold_tpu_torch.eval.metrics",
+            "hold_tpu_torch.utils.databus", "chip_smoke")
     code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'optax', 'orbax') if m in sys.modules]; "
             "assert not bad, bad; "
@@ -237,8 +258,8 @@ def test_port_entry_points_import_no_jax():
 
 def test_run_training_writes_metrics_and_checkpoint(tmp_path):
     """The port's training loop on the CPU: a few steps of the toy scene,
-    finite losses in metrics.jsonl, a torch.save checkpoint; the flags for
-    what is not ported yet are refused."""
+    finite losses in metrics.jsonl, a torch.save checkpoint; with validation
+    on, a rendered frame and its PSNR at the last step."""
     import json
 
     from hold_tpu_torch.train import run_training
@@ -256,5 +277,9 @@ def test_run_training_writes_metrics_and_checkpoint(tmp_path):
     assert all(np.isfinite(l["loss"]) and np.isfinite(l["psnr"]) for l in lines)
     ckpt = torch.load(tmp_path / "toy" / "checkpoints" / "last.pt")
     assert ckpt["step"] == 3 and "right/tables/transl" in ckpt["params"]
-    with pytest.raises(NotImplementedError):
-        run_training(Cfg({**args, "no_vis": False}), cfg, seq=seq, device="cpu")
+    vis = Cfg({**args, "no_vis": False, "exp_key": "toy_vis", "total_step": 1, "tempo_len": 1,
+               "render_downsample": 4})
+    run_training(vis, cfg, seq=seq, device="cpu")
+    assert os.listdir(tmp_path / "toy_vis" / "visuals") != []
+    val = [json.loads(l) for l in open(tmp_path / "toy_vis" / "metrics.jsonl")][-1]
+    assert val["step"] == 1 and np.isfinite(val["val/psnr"])
