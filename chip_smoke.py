@@ -33,7 +33,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the KNN blend kernels at the sampler warp's.  Then the shapes ``-f``
    gives rows 5-6 (10 frames x 8 rays, the sampler at 16 / 32 / 8 samples,
    2 rounds): every fused query call of one ``-f`` sampler stage against its
-   plain version and the layer-by-layer query.
+   plain version and the layer-by-layer query; and row 7, forward and
+   backward part by part, at what one ``-f`` grad stage hands it (10 frames
+   x 208 points, both nodes), under the limits derived at that N.
 4. Agreement on a small batch: the sdf the card's sampler read (every call
    of the fused query kernels, at its own inputs) against the plain
    versions on the CPU at the same inputs, and the plain versions on the
@@ -87,10 +89,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    then on a sequence made with ``pose_noise`` 0.3 after 2 steps from its
    noised poses, against its ``entities_gt``.  Walls split into the servers
    and the host's metrics.
+8. Refinement and viewing: ``hold_tpu_torch.optimize_ckpt`` on the fused
+   run's checkpoint at step 8 (its object mesh from the epoch-3 meshing) at
+   the CLI's defaults (masks at ``--target_dim`` 300, batches of 10 frames,
+   the object decimated to 5,000 faces) but ``--iters`` 4, GIFs on: the
+   refined checkpoint at step 999,000,000 read back, finite, its frozen
+   leaves and rejected batches the source's bit for bit and its kept ones
+   the fit's; ``evaluate`` (at ``--icp_iters`` 40) and ``visualize_ckpt``
+   (12 PNGs, ``overlay.mp4``, ``viewer.html``) on it, with no kernel of the
+   port launched on either path; a fit iteration at the 10-frame batch
+   timed, its launches and peak memory; one FittingProblem card against
+   CPU on 2 frames with masks at 48 (one hand, two hands): loss terms, free
+   leaves' gradients, 5 iterations of ``run_fit``; the generator's
+   ``fit_mano_to_verts`` and ``AlignmentProblem.fit`` (h, o, ho) on the
+   sequence's 12 frames, card against CPU, timed.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels (errors, kernel and plain
-times, the bound from this run's shapes, launches per path), and
+times, the bound from this run's shapes, launches per path, "refine" and
+"visualize" among them), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
 directory that does not hold the hold_tpu_torch package, it exits non-zero
 and prints no result.
@@ -203,6 +220,28 @@ GRAD_LIMITS = {"point": (0.0, 1.0), "trunk": (2e-2, 8.0), "colour": (1.0, 15.0),
                "frame bias": (0.12, 15.0)}
 LOSS_LIMITS = {"point": (5e-4, 4.0), "trunk": (0.0, 1.0), "colour": (0.0, 1.0),
                "frame bias": (0.0, 1.0)}
+# Limits set at one N hold only there: a sum over 208 points a frame (-f's
+# 8 rays x 26 samples) cancels otherwise than one over 12,544.  The rule at
+# every N: for each kind of part and each set of cotangents, the cap is at
+# least 1.1x the worst of the kernel's and the float64 reading's at that N,
+# the share beyond the bound at least 1.1x theirs, and the unrounded
+# control's worst of the kind exceeds the cap or its share.  At 12,544 the
+# limits above do that (readings above) and stay.  At N = 208 (both
+# nodes of a -f grad stage, on an H100; kernel | float64 | control, worst
+# and share beyond): seeded cotangents, with the tail rows' alone too,
+# per-point 0.541 | 0.541 | 2.50 (0.71 %), trunk 3.85 (1.2 %) | 3.86
+# (0.39 %) | 26.6 (64 %), colour 7.87 (38 %) | 5.27 (24 %) | 22.9 (82 %),
+# frame bias 13.2 (11 %) | 5.42 (4.9 %) | 43.1 (63 %); the JAX test's loss,
+# per-point 0.734 | 0.649 | 3.04 (1.1 %), trunk 0.093 | 0.057 | 0.821,
+# colour 0.523 | 0.542 | 1.32, frame bias 1.01 (0.039 %) | 1.09 (0.039 %) |
+# 6.11 (0.78 %).  So at 208 the frame bias's share under seeded cotangents
+# (11 % against 12 %) and its cap under the JAX test's loss (1.09 against
+# 1.0) are set anew, and the trunk's cap under that loss is tightened to
+# lie below its control's 0.821.
+GRAD_LIMITS_208 = dict(GRAD_LIMITS, **{"frame bias": (0.2, 15.0)})
+LOSS_LIMITS_208 = dict(LOSS_LIMITS, **{"trunk": (0.0, 0.5), "frame bias": (1e-3, 2.0)})
+# points a frame -> (GRAD_LIMITS, LOSS_LIMITS) derived at that N
+SHADE_LIMITS = {12544: (GRAD_LIMITS, LOSS_LIMITS), 208: (GRAD_LIMITS_208, LOSS_LIMITS_208)}
 COLOUR_PARTS = ("bw.feat_w", "cw.C0a", "cw.C0f", "cw.C1", "cw.C2", "cw.C3", "cw.cbias0",
                 "cw.cbias1", "cw.cbias2", "cw.cbias3")
 # phase 4, 16 rays: the card at most 2.5 with 0.4 % of a tensor beyond,
@@ -884,9 +923,11 @@ def grad_table(read: dict, limits: dict, show, control: str) -> tuple:
 def shade_grad_check(torch, fs, args, cts, tail, kinds: dict = GRAD_LIMITS) -> dict:
     """One backward of row 7, part by part: the kernel, the plain version
     with float64 products and without its bf16 roundings, each against the
-    plain version, held to ``kinds``' limits.  Returns {reading: {part: (worst,
-    share, max|d|)}, "limits": ..., "failed": [...], "caught": [...],
-    "ref": the plain version's gradients}."""
+    plain version, held to ``kinds``' limits, which the kernel and the
+    float64 reading must pass and the unrounded control must fail on some
+    part.  Returns {reading: {part: (worst, share, max|d|)}, "limits": ...,
+    "failed": [...], "caught": [...], "ref": the plain version's
+    gradients}."""
     from unittest import mock
 
     def plain():
@@ -909,10 +950,112 @@ def shade_grad_check(torch, fs, args, cts, tail, kinds: dict = GRAD_LIMITS) -> d
     print(f"    backward, {len(ref_p)} parts, worst |d| / bound (share beyond) of the kernel | f64 "
           f"products | unrounded, and the part's limit:", flush=True)
     out["failed"], out["caught"] = grad_table(out, out["limits"], ref_p, "unrounded")
+    # a limit must also pass the sound reading, or it would fail a kernel
+    # that only sums in another order
+    out["failed"] += [f"{k} (the f64 reading)" for k, (w, sh, _) in out["f64 products"].items()
+                      if not (sh <= out["limits"][k][0] and w <= out["limits"][k][1])]
     out["ref"] = ref
     print(f"    the unrounded control fails {len(out['caught'])} of {len(ref_p)} parts "
           f"{'ok' if out['caught'] else 'FAIL'}", flush=True)
     return out
+
+
+def shade_case(torch, fs, fr, label: str, args, gen, dev, errs: dict, limits) -> list:
+    """Row 7 at one case's inputs (``args``, the op's arguments): the forward
+    kernel against its plain version, then the backward part by part under
+    the JAX package's test loss (``limits[1]``), under seeded cotangents and
+    under those with only the tail rows carrying them (``limits[0]``), with
+    the controls that must fail.  Records the readings in ``errs``; returns
+    the failures."""
+    failed = []
+    Bc, N = args[0].shape[:2]
+    print(f"  fused_shade_train, {label} (B={Bc} N={N}):", flush=True)
+    got, ref = fs.shade_train_fwd_cuda(*args), fs.shade_train_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        if g.shape != r.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"fused_shade_train.fwd: shape {tuple(g.shape)} or non-finite")
+    e = {"sdf": check_bf16_query("  sdf", got[0], ref[0]),
+         "rgb": check_close("  rgb", got[1], ref[1], 0.0, RENDER_RGB)}
+    d_n = (got[2] - ref[2]).abs().flatten()
+    p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
+    ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
+    print(f"    normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max {n_max:.3e} "
+          f"(tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("fused_shade_train.fwd: normals disagree with the plain version")
+    e["normal"] = n_max
+    errs["fwd"][label] = e
+    tail = shade_tail_rows(fs, Bc, N)
+    # the cotangents of the JAX package's test loss, sum sdf^2 + |rgb|^2
+    # + |n_x|, which do not cancel over the points
+    g_nrm = torch.zeros_like(ref[2])
+    g_nrm[..., 0] = torch.sign(ref[2][..., 0])
+    print("    under the JAX test's loss:", flush=True)
+    res_l = shade_grad_check(torch, fs, args, (2.0 * ref[0], 2.0 * ref[1], g_nrm), tail,
+                             limits[1])
+    failed += [f"{label} {k} (the JAX test's loss)" for k in res_l["failed"]]
+    cts = [torch.randn(s, generator=gen, device=dev) for s in ((Bc, N), (Bc, N, 3), (Bc, N, 3))]
+    print("    under seeded cotangents:", flush=True)
+    res = shade_grad_check(torch, fs, args, cts, tail, limits[0])
+    # the tail rows alone: with the other points' cotangents zero, every
+    # sum over the points holds only theirs
+    mask = torch.zeros(Bc * N, device=dev)
+    mask[tail] = 1.0
+
+    def masked(m):
+        return [c * m.view((Bc, N) + (1,) * (c.dim() - 2)) for c in cts]
+
+    # control: the first 16 points of each frame summed into the frame
+    # before must fail the frame bias's limits
+    first = torch.zeros((Bc, N), device=dev)
+    first[1:, :16] = 1.0
+    moved = fs.shade_train_bwd_plain(*args, *masked(first.view(-1)))["fb0"]
+    ref_fb = res["ref"]["fb0"]
+    w, sh, _ = grad_reading(torch, ref_fb - moved + moved.roll(-1, 0), ref_fb)
+    share, cap = res["limits"]["fb0"]
+    ok = sh > share or w > cap
+    print(f"    control, each frame's first 16 points summed into the frame before: fb0 "
+          f"{w:.3f} ({sh:.1e}), limit {cap:g} ({share:g}) {'fails it, ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        failed.append(f"{label}: the frame bias's limits pass misplaced frame boundaries")
+
+    print(f"    the {len(tail)} tail rows alone (cotangents zero elsewhere):", flush=True)
+    res_t = shade_grad_check(torch, fs, args, masked(mask), tail, limits[0])
+    failed += [f"{label} {k}" for k in res["failed"]]
+    failed += [f"{label} {k} (tail rows alone)" for k in res_t["failed"]]
+    if not (res["caught"] and res_t["caught"]):
+        failed.append(f"{label}: the limits pass the unrounded control")
+    kern = res["kernel"]
+    top = max((k for k in kern if k != "fb0"), key=lambda k: kern[k][0])
+    errs["bwd"][label] = {
+        "worst_part": top, "worst": kern[top][0], "fb0": kern["fb0"][0],
+        "sound_worst": max(v[0] for v in res["f64 products"].values()),
+        "tail_alone_worst": max(v[0] for v in res_t["kernel"].values()),
+        "jax_loss_worst": max(v[0] for v in res_l["kernel"].values()),
+        "max_abs_err": max(v[2] for v in kern.values())}
+    if N % fr.TILE:
+        # control: the plain version without the last partial 16-point
+        # block must fail the limits, or they could not see a kernel that
+        # dropped one
+        k = (Bc * N) % 16 or 16
+        drop = mask.clone()
+        drop[-k:] = 0.0
+        ref_t = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(mask)), None)
+        ctl = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(drop)), None)
+        caught = []
+        for p, r in ref_t.items():
+            w, sh, _ = grad_reading(torch, ctl[p], r)
+            share, cap = res_t["limits"][p]
+            if sh > share or w > cap:
+                caught.append(p)
+        print(f"    control, the last {k} points dropped: the limits fail it on "
+              f"{len(caught)} parts ({', '.join(caught[:6])}, ...) "
+              f"{'ok' if caught else 'FAIL'}", flush=True)
+        if not caught:
+            failed.append(f"{label}: the limits pass a dropped last block")
+    return failed
 
 
 def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, record,
@@ -964,93 +1107,8 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
     errs = {"fwd": {}, "bwd": {}}
     failed = []
     for label, args in cases.items():
-        Bc, N = args[0].shape[:2]
-        print(f"  fused_shade_train, {label} (B={Bc} N={N}):", flush=True)
-        got, ref = fs.shade_train_fwd_cuda(*args), fs.shade_train_plain(*args)
-        torch.cuda.synchronize()
-        for g, r in zip(got, ref):
-            if g.shape != r.shape or not bool(torch.isfinite(g).all()):
-                raise AssertionError(f"fused_shade_train.fwd: shape {tuple(g.shape)} or non-finite")
-        e = {"sdf": check_bf16_query("  sdf", got[0], ref[0]),
-             "rgb": check_close("  rgb", got[1], ref[1], 0.0, RENDER_RGB)}
-        d_n = (got[2] - ref[2]).abs().flatten()
-        p99, n_max = float(d_n.quantile(0.99)), float(d_n.max())
-        ok = p99 <= RENDER_NRM_P99 and n_max <= RENDER_NRM_MAX
-        print(f"    normal: p99 |d| {p99:.3e} (tol {RENDER_NRM_P99}), max {n_max:.3e} "
-              f"(tol {RENDER_NRM_MAX}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise AssertionError("fused_shade_train.fwd: normals disagree with the plain version")
-        e["normal"] = n_max
-        errs["fwd"][label] = e
-        tail = shade_tail_rows(fs, Bc, N)
-        # the cotangents of the JAX package's test loss, sum sdf^2 + |rgb|^2
-        # + |n_x|, which do not cancel over the points
-        g_nrm = torch.zeros_like(ref[2])
-        g_nrm[..., 0] = torch.sign(ref[2][..., 0])
-        print("    under the JAX test's loss:", flush=True)
-        res_l = shade_grad_check(torch, fs, args, (2.0 * ref[0], 2.0 * ref[1], g_nrm), tail,
-                                 LOSS_LIMITS)
-        failed += [f"{label} {k} (the JAX test's loss)" for k in res_l["failed"]]
-        cts = [torch.randn(s, generator=gen, device=dev) for s in ((Bc, N), (Bc, N, 3), (Bc, N, 3))]
-        print("    under seeded cotangents:", flush=True)
-        res = shade_grad_check(torch, fs, args, cts, tail)
-        # the tail rows alone: with the other points' cotangents zero, every
-        # sum over the points holds only theirs
-        mask = torch.zeros(Bc * N, device=dev)
-        mask[tail] = 1.0
-
-        def masked(m):
-            return [c * m.view((Bc, N) + (1,) * (c.dim() - 2)) for c in cts]
-
-        # control: the first 16 points of each frame summed into the frame
-        # before must fail the frame bias's limits
-        first = torch.zeros((Bc, N), device=dev)
-        first[1:, :16] = 1.0
-        moved = fs.shade_train_bwd_plain(*args, *masked(first.view(-1)))["fb0"]
-        ref_fb = res["ref"]["fb0"]
-        w, sh, _ = grad_reading(torch, ref_fb - moved + moved.roll(-1, 0), ref_fb)
-        share, cap = res["limits"]["fb0"]
-        ok = sh > share or w > cap
-        print(f"    control, each frame's first 16 points summed into the frame before: fb0 "
-              f"{w:.3f} ({sh:.1e}), limit {cap:g} ({share:g}) {'fails it, ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            failed.append(f"{label}: the frame bias's limits pass misplaced frame boundaries")
-
-        print(f"    the {len(tail)} tail rows alone (cotangents zero elsewhere):", flush=True)
-        res_t = shade_grad_check(torch, fs, args, masked(mask), tail)
-        failed += [f"{label} {k}" for k in res["failed"]]
-        failed += [f"{label} {k} (tail rows alone)" for k in res_t["failed"]]
-        if not (res["caught"] and res_t["caught"]):
-            failed.append(f"{label}: the limits pass the unrounded control")
-        kern = res["kernel"]
-        top = max((k for k in kern if k != "fb0"), key=lambda k: kern[k][0])
-        errs["bwd"][label] = {
-            "worst_part": top, "worst": kern[top][0], "fb0": kern["fb0"][0],
-            "sound_worst": max(v[0] for v in res["f64 products"].values()),
-            "tail_alone_worst": max(v[0] for v in res_t["kernel"].values()),
-            "jax_loss_worst": max(v[0] for v in res_l["kernel"].values()),
-            "max_abs_err": max(v[2] for v in kern.values())}
-        if N % fr.TILE:
-            # control: the plain version without the last partial 16-point
-            # block must fail the limits, or they could not see a kernel that
-            # dropped one
-            k = (Bc * N) % 16 or 16
-            drop = mask.clone()
-            drop[-k:] = 0.0
-            ref_t = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(mask)), None)
-            ctl = shade_grad_parts(fs, fs.shade_train_bwd_plain(*args, *masked(drop)), None)
-            caught = []
-            for p, r in ref_t.items():
-                w, sh, _ = grad_reading(torch, ctl[p], r)
-                share, cap = res_t["limits"][p]
-                if sh > share or w > cap:
-                    caught.append(p)
-            print(f"    control, the last {k} points dropped: the limits fail it on "
-                  f"{len(caught)} parts ({', '.join(caught[:6])}, ...) "
-                  f"{'ok' if caught else 'FAIL'}", flush=True)
-            if not caught:
-                failed.append(f"{label}: the limits pass a dropped last block")
+        failed += shade_case(torch, fs, fr, label, args, gen, dev, errs,
+                             (GRAD_LIMITS, LOSS_LIMITS))
     args = cases["right"]
     n = args[0].shape[0] * args[0].shape[1]
     cts = [torch.randn(s, generator=gen, device=dev) for s in ((B, n // B), (B, n // B, 3),
@@ -1166,6 +1224,78 @@ def fast_shape_checks(torch, seq, data_root: str, dev, results) -> None:
         raise AssertionError(f"the -f sampler called {sorted(errs)} only")
     for name, e in errs.items():
         results[name]["fast"] = e
+
+
+@contextlib.contextmanager
+def recorded_shades(torch, calls: list):
+    """While open, every call of the nodes' fused training shade (row 7's
+    op) appends its arguments, detached and contiguous as the op hands them
+    to its kernels, to ``calls``, in the order the grad stage made them."""
+    from hold_tpu_torch.models import nodes
+
+    op = nodes.fused_shade_train
+
+    def detached(x):
+        if isinstance(x, dict):
+            return {k: detached(v) for k, v in x.items()}
+        return x.detach().contiguous() if torch.is_tensor(x) else x
+
+    def call(*a):
+        calls.append(tuple(detached(x) for x in a))
+        return op(*a)
+
+    nodes.fused_shade_train = call
+    try:
+        yield
+    finally:
+        nodes.fused_shade_train = op
+
+
+def fast_shade_checks(torch, seq, data_root: str, dev, results) -> None:
+    """Phase 3, row 7 at the shapes ``-f`` gives it: the arguments each node
+    hands the op in one ``-f`` grad stage (10 frames x 8 rays x 26 samples,
+    N = 208 points a frame), recorded, through ``shade_case`` under the
+    limits derived at that N (SHADE_LIMITS)."""
+    import numpy as np
+
+    from hold_tpu_torch.models.holdnet import (
+        build_scene, empty_object_mesh_state, holdnet_forward, init_scene_params, sample_all_z,
+        sample_step_draws,
+    )
+    from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.ops import fused_shade as fs
+    from hold_tpu_torch.train import batch_to_device
+
+    args, cfg = fast_config(data_root)
+    scene = build_scene(dict(cfg["model"], scene_bounding_sphere=seq.scene_bounding_sphere),
+                        dict(args), seq.scene_data(), dev)
+    params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(0), BATCH_SIZE, 1,
+                                                   int(args["num_sample"])), dev)
+    B, P = batch["uv"].shape[:2]
+    step, epoch = 300, 25  # hand loss targets active, pose conditioning on
+    gen = torch.Generator(dev).manual_seed(0)
+    calls = []
+    with torch.no_grad():
+        zs = sample_all_z(params, scene, batch, gen, step, epoch)
+    with recorded_shades(torch, calls):
+        holdnet_forward(params, scene, batch, empty_object_mesh_state(dev),
+                        sample_step_draws(scene, B, P, gen), step, epoch, zs)
+    if len(calls) != len(scene.node_ids):
+        raise AssertionError(f"the -f grad stage shaded {len(calls)} times")
+    gen = torch.Generator(dev).manual_seed(8)
+    errs = {"fwd": {}, "bwd": {}}
+    failed = []
+    for nid, a in zip(scene.node_ids, calls):
+        N = a[0].shape[1]
+        if N not in SHADE_LIMITS:
+            raise AssertionError(f"row 7 at N = {N}: no limits derived at that N")
+        failed += shade_case(torch, fs, fr, f"-f {nid}", a, gen, dev, errs, SHADE_LIMITS[N])
+    results["fused_shade_train.fwd"]["fast"] = errs["fwd"]
+    results["fused_shade_train.bwd"]["fast"] = errs["bwd"]
+    if failed:
+        raise AssertionError(f"fused_shade_train at -f's shapes disagrees with its plain "
+                             f"version: {failed}")
 
 
 def render_batch(torch, seq, dev, n_rays):
@@ -2085,6 +2215,356 @@ def evaluation(torch, data_root: str, args, cfg, dev) -> None:
         raise AssertionError("the noised sequence is not evaluated against its truth")
 
 
+REFINE_ITERS = 4  # optimize_ckpt --iters in phase 8 (the CLI's default is 500)
+REFINE_STEP = 8  # the fused run's checkpoint that phase 8 refines (resumed to step 8)
+REFINE_ICP_ITERS = 40  # evaluate --icp_iters on the refined checkpoint (phase 7 runs 600)
+# card against CPU (phase 8): FittingProblem on 2 frames with masks scaled
+# to this longer side (36x48 of the 240x320 sequence)
+AGREE_TARGET_DIM = 48
+# ... the loss terms within FIT_LOSS_RTOL of the CPU's, each free leaf's
+# gradient within FIT_GRAD_TOL of the CPU's largest element of that leaf,
+# and 5 iterations of run_fit's loss history within FIT_HIST_RTOL: both
+# devices render the same near-binary silhouettes (sigma 1e-6) and differ
+# by the rounding of exp / log1p and of the sums' order
+FIT_LOSS_RTOL, FIT_GRAD_TOL, FIT_HIST_RTOL = 1e-4, 1e-3, 1e-3
+# the generator's loops, card against CPU: outputs and loss histories
+GEN_TOL = 1e-3
+
+
+def kernel_launches() -> dict:
+    from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
+
+    return {k: v for mod in (knn, point_mesh, fused_query, fused_render, fused_shade)
+            for k, v in mod.LAUNCHES.items()}
+
+
+def reset_kernel_launches() -> None:
+    from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
+
+    for mod in (knn, point_mesh, fused_query, fused_render, fused_shade):
+        mod.reset_launch_counts()
+
+
+def truth_problem(torch, seq, frames, target_dim, dev):
+    """A FittingProblem on a synthetic sequence's truth (its entities'
+    poses, its masks scaled to ``target_dim``), with the object moved 1 cm
+    along x so that the fit has work; (problem, parameters)."""
+    import numpy as np
+
+    from hold_tpu_torch.fitting.fit import FittingProblem, build_fit_params, load_contact_idx
+    from hold_tpu_torch.mano.server import build_mano_server
+    from hold_tpu_torch.models.object_model import build_object_server
+    from hold_tpu_torch.optimize_ckpt import entity_masks, scale_masks_K
+
+    ent = seq.entities
+    nids = seq.hand_ids + ["object"]
+    o = ent["object"]
+    servers = {h: build_mano_server(h == "right", ent[h]["mean_shape"], device=dev)
+               for h in seq.hand_ids}
+    servers["object"] = build_object_server(o["pts.cano"], float(o["obj_scale"]), o["norm_mat"],
+                                            dev)
+    faces = {h: np.asarray(servers[h].consts.faces) for h in seq.hand_ids}
+    faces["object"] = o["faces"]
+    w2c = np.stack([np.linalg.inv(e) for e in seq.extrinsics_all]).astype(np.float32)
+    masks, K, imsize = scale_masks_K(seq.masks[frames], seq.intrinsics_all[0][:3, :3],
+                                     target_dim)
+    prob = FittingProblem(servers, faces, entity_masks(masks, nids), w2c[frames], K, seq.scale,
+                          imsize, load_contact_idx())
+    tables = {h: {"betas": ent[h]["mean_shape"][None], "global_orient": ent[h]["hand_poses"][:, :3],
+                  "pose": ent[h]["hand_poses"][:, 3:], "transl": ent[h]["hand_trans"]}
+              for h in seq.hand_ids}
+    tables["object"] = {"global_orient": o["object_poses"][:, :3],
+                        "transl": o["object_poses"][:, 3:] + np.array([0.01, 0.0, 0.0])}
+    return prob, build_fit_params(tables, nids, float(o["obj_scale"]), frames, dev)
+
+
+def fit_agreement(torch, seq, label: str, dev) -> None:
+    """Phase 8, card against CPU: one FittingProblem on 2 frames at
+    AGREE_TARGET_DIM, its loss terms and every free leaf's gradient (stage
+    1's leaves: betas and obj_scale free too), then run_fit for 5
+    iterations (stage 2's leaves), the loss histories."""
+    from hold_tpu_torch.fitting.fit import fit_labels, run_fit, trainable_copy
+
+    frames = [0, 6]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        prob, params = truth_problem(torch, seq, frames, AGREE_TARGET_DIM, device)
+        two = len(prob.hand_ids) == 2
+
+        def loss_fn(p):
+            o = prob.forward(p)
+            if two:
+                with torch.no_grad():
+                    j2d = {f: prob.project_verts(o[f"{f}.v3d_c"]) + 0.5 for f in prob.hand_ids}
+                d = prob.loss_two_hands(o, j2d)
+            else:
+                d = prob.loss_single_hand(o, "right")
+            return d["loss"], {k: float(v.detach()) for k, v in d.items()}
+
+        leaves, _ = trainable_copy(params, fit_labels(params, False, False))
+        loss, terms = loss_fn(leaves)
+        loss.backward()
+        free = {}
+        for nid, v in leaves.items():
+            for k, x in (v.items() if isinstance(v, dict) else [("", v)]):
+                if x.requires_grad:
+                    free[f"{nid}.{k}" if k else nid] = x.grad.cpu()
+        hist = run_fit(prob, params, True, True, num_iterations=5)[1]
+        out.append((terms, free, hist))
+    (t_c, g_c, h_c), (t_h, g_h, h_h) = out
+    loss_err = max(abs(t_c[k] - v) / max(abs(v), 1e-12) for k, v in t_h.items())
+    grad_err = {k: float((g_c[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                for k, v in g_h.items()}
+    hist_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(h_c, h_h))
+    ok = (loss_err <= FIT_LOSS_RTOL and max(grad_err.values()) <= FIT_GRAD_TOL
+          and hist_err <= FIT_HIST_RTOL and len(h_c) == len(h_h) == 5)
+    print(f"  {label}, card vs CPU (frames {frames}, masks at {AGREE_TARGET_DIM}): loss terms "
+          f"{loss_err:.2e} (rtol {FIT_LOSS_RTOL}), free leaves' gradients "
+          f"{ {k: f'{v:.2e}' for k, v in grad_err.items()} } (tol {FIT_GRAD_TOL} of the "
+          f"largest), run_fit 5 iterations' losses {hist_err:.2e} (rtol {FIT_HIST_RTOL}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the card's fitting problem disagrees with the CPU's")
+
+
+def generator_loops(torch, seq, dev) -> None:
+    """Phase 8: the generator's two fitting loops at the sequence's frame
+    count, card against CPU, timed on the card: fit_mano_to_verts on the
+    right hand's vertices at its true poses (10 coarse + 10 fine steps),
+    then AlignmentProblem.fit in modes h, o (the scale unlocking at 5 of
+    10) and ho (5) on the truth's projected joints and object points."""
+    import numpy as np
+
+    from hold_tpu_torch.generator.align import AlignmentProblem, project
+    from hold_tpu_torch.generator.register_mano import fit_mano_to_verts
+    from hold_tpu_torch.mano.server import build_mano_server, mano_server_forward
+    from hold_tpu_torch.models.object_model import build_object_server, object_server_forward
+
+    ent = seq.entities
+    n = seq.n_frames
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        srv = build_mano_server(True, ent["right"]["mean_shape"])
+        hp = torch.as_tensor(ent["right"]["hand_poses"])
+        hand = mano_server_forward(srv, torch.ones(n), torch.as_tensor(ent["right"]["hand_trans"]),
+                                   hp, torch.zeros((n, 10)))
+        o = ent["object"]
+        obj = object_server_forward(build_object_server(o["pts.cano"], float(o["obj_scale"]),
+                                                        o["norm_mat"]), torch.ones(n),
+                                    torch.as_tensor(o["object_poses"][:, 3:]),
+                                    torch.as_tensor(o["object_poses"][:, :3]))
+    K = seq.intrinsics_all[0][:3, :3].astype(np.float32)
+    Kt = torch.as_tensor(K)
+    j2d = project(Kt, hand.jnts).numpy()
+    o2d = project(Kt, obj.verts).numpy()
+    verts = hand.verts.numpy()
+    res = []
+    for device in (dev, cpu):
+        t0 = time.perf_counter()
+        fit = fit_mano_to_verts(verts, True, coarse_iters=10, fine_iters=10, device=device)
+        t_reg = time.perf_counter() - t0
+        prob = AlignmentProblem({"right": j2d}, o2d, o["pts.cano"] * float(o["obj_scale"]), K,
+                                device=device)
+        p = prob.init_params(n, {"right": {"pose": ent["right"]["hand_poses"][:, 3:]}})
+        hists, walls = [], []
+        for mode, kw in (("h", dict(iters=10)), ("o", dict(iters=10, scale_unlock_at=5)),
+                         ("ho", dict(iters=5))):
+            t0 = time.perf_counter()
+            p = prob.fit(p, mode, **kw)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / kw["iters"])
+            hists += prob.history
+        res.append((fit, hists, t_reg * 1e3 / 20, walls))
+    (fit_c, h_c, reg_ms, walls), (fit_h, h_h, _, _) = res
+    reg_err = max(float(np.abs(fit_c[k] - v).max()) for k, v in fit_h.items())
+    hist_err = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(h_c, h_h))
+    ok = reg_err <= GEN_TOL and hist_err <= GEN_TOL and all(map(math.isfinite, h_c))
+    print(f"  fit_mano_to_verts ({n} frames, 20 steps): card vs CPU {reg_err:.2e}, vertex error "
+          f"{float(fit_c['vert_err'].mean()):.2e}, {reg_ms:.3f} ms a step on the card (with its "
+          f"setup); AlignmentProblem.fit h / o / ho: losses card vs CPU {hist_err:.2e} (tol "
+          f"{GEN_TOL}), {' / '.join(f'{w:.3f}' for w in walls)} ms an iteration on the card "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the generator's fitting loops disagree card vs CPU")
+
+
+def refined_checkpoint_checks(torch, exp: str, src_path: str, path: str, seq, dev,
+                              fits: list) -> None:
+    """Phase 8: the refined checkpoint is step 999,000,000, the newest, read
+    by ``load_experiment``, finite; every tensor but the free tables and
+    obj_scale is the source's bit for bit (the hands' pose and global
+    orient too); betas and obj_scale are stage 1's result (the source's when
+    it was rejected); stage 2's translations and the object's orientation
+    are each batch's fit where it was kept and the source's where not; the
+    fit-visualisation GIFs are written.  ``fits``: each run_fit call's
+    (frames, wall, returns), stage 1 first."""
+    from hold_tpu_torch.optimize_ckpt import STEP_TAG
+    from hold_tpu_torch.utils.checkpoint import load_experiment, read_checkpoint
+
+    want = os.path.join(exp, "checkpoints", f"step_{STEP_TAG:09d}.pt")
+    if path != want or not os.path.isfile(want):
+        raise AssertionError(f"no refined checkpoint {want}")
+    _, _, step = load_experiment(exp, seq, dev)
+    state, src = read_checkpoint(want)["params"], read_checkpoint(src_path)["params"]
+    if step != STEP_TAG or not all(bool(torch.isfinite(v).all()) for v in state.values()):
+        raise AssertionError("the refined checkpoint is not the newest or not finite")
+    (_, _, (p1, _, kept1, _)), stage2 = fits[0], fits[1:]
+    stage1 = {"right/tables/betas": p1["right"]["betas"] if kept1 else src["right/tables/betas"],
+              "object/obj_scale": p1["obj_scale"] if kept1 else src["object/obj_scale"]}
+    bad = [k for k, v in src.items() if "/tables/" not in k and k != "object/obj_scale"
+           and not torch.equal(state[k], v)]
+    bad += [k for k in ("right/tables/pose", "right/tables/global_orient")
+            if not torch.equal(state[k], src[k])]
+    bad += [k for k, v in stage1.items() if not torch.equal(state[k], v.cpu().reshape(
+        state[k].shape))]
+    frame = 0
+    for f, _, (p2, _, kept, _) in stage2:
+        idx = slice(frame, frame + f)
+        for k in ("right/tables/transl", "object/tables/transl", "object/tables/global_orient"):
+            nid, leaf = k.split("/")[0], k.split("/")[-1]
+            ref = p2[nid][leaf].cpu() if kept else src[k][idx]
+            if not torch.equal(state[k][idx], ref):
+                bad.append(f"{k}[{idx.start}:{idx.stop}]")
+        frame += f
+    gifs = sorted(os.listdir(os.path.join(exp, "fit_vis")))
+    print(f"  refined checkpoint: step {step}, stage 1 {'kept' if kept1 else 'rejected'}, "
+          f"stage 2 {[r[2] for _, _, r in stage2]}; fit_vis {gifs}", flush=True)
+    if bad or frame != seq.n_frames:
+        raise AssertionError(f"the refinement moved what it must not, or kept what it "
+                             f"rejected: {bad}")
+    if gifs != ["stage1.gif", "stage2_0000.gif", "stage2_0010.gif"]:
+        raise AssertionError(f"fit_vis holds {gifs}")
+
+
+def fit_iteration_cost(torch, prob, params) -> None:
+    """Phase 8: one fit iteration (forward, backward with the chunks
+    recomputed, Adam) on the refinement's own first stage-2 problem (10
+    frames, masks at ``--target_dim``, the object decimated as the CLI
+    does), from that batch's input: the wall (synchronised) of a forward
+    alone, then wall and peak memory of one iteration, then device time and
+    launches by kernel family (torch.profiler over a second one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hold_tpu_torch.fitting.fit import fit_labels, trainable_copy
+
+    p, free = trainable_copy(params, fit_labels(params, True, True))
+    opt = torch.optim.Adam(free, lr=1e-2, eps=1e-8)
+
+    def iteration():
+        opt.zero_grad()
+        prob.loss_single_hand(prob.forward(p), "right")["loss"].backward()
+        opt.step()
+
+    # no warm-up: the refinement ran the same shapes just before
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        prob.forward(p)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    iteration()
+    torch.cuda.synchronize()
+    it_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        iteration()
+        torch.cuda.synchronize()
+    dev_ms, n_launch, split = device_split(torch, prof)
+    print(f"  a fit iteration at the 10-frame batch ({prob.imsize[0]}x{prob.imsize[1]} masks, "
+          f"faces { {k: len(v) for k, v in prob.faces.items()} }): a forward {fwd_ms:.3f} ms, "
+          f"an iteration {it_ms:.3f} ms (synchronised), device {dev_ms:.3f} ms in {n_launch} "
+          f"launches ({split}); peak {peak:.3f} GiB", flush=True)
+
+
+def refinement(torch, data_root: str, args, dev, launches: dict) -> None:
+    """Phase 8: ``optimize_ckpt`` on the fused run's checkpoint at step
+    REFINE_STEP (the canonical object mesh of its epoch-3 meshing) at the
+    CLI's defaults but ``--iters``, GIFs on, each run_fit call timed; the
+    refined checkpoint checked (``refined_checkpoint_checks``);
+    ``evaluate`` and ``visualize_ckpt`` on it; no kernel of the port
+    launched on the refine and visualize paths; then the fit's cost at the
+    10-frame batch, the card against the CPU on a small problem (one hand,
+    two hands), the generator's loops."""
+    from hold_tpu_torch import evaluate, optimize_ckpt, visualize_ckpt
+    from hold_tpu_torch.data.dataset import SequenceData
+    from hold_tpu_torch.data.synthetic import generate_sequence
+
+    exp = os.path.join(args["log_root"], args["exp_key"])
+    src_path = os.path.join(exp, "checkpoints", f"step_{REFINE_STEP:09d}.pt")
+    fits = []  # each run_fit call: (frames, wall s, its returns)
+    problems = []  # each run_fit call: (problem, its input parameters)
+    real_fit = optimize_ckpt.run_fit
+
+    def timed_fit(prob, params, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ret = real_fit(prob, params, *a, **k)
+        torch.cuda.synchronize()
+        fits.append((prob.w2c.shape[0], time.perf_counter() - t0, ret))
+        problems.append((prob, params))
+        return ret
+
+    optimize_ckpt.run_fit = timed_fit
+    reset_kernel_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        path = optimize_ckpt.main(["--exp", exp, "--case", "synthetic", "--data_root", data_root,
+                                   "--iters", str(REFINE_ITERS), "--ckpt", src_path,
+                                   "--device", dev.type])
+    finally:
+        optimize_ckpt.run_fit = real_fit
+    wall = time.perf_counter() - t0
+    launches["refine"] = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  refine: {wall * 1e3:.3f} ms in all; run_fit walls (frames: ms, kept) "
+          f"{[(f, round(w * 1e3, 3), r[2]) for f, w, r in fits]}; peak {peak:.3f} GiB; "
+          f"launches {[k for k, v in launches['refine'].items() if v] or 'none'}", flush=True)
+    if any(launches["refine"].values()):
+        raise AssertionError(f"refinement launched port kernels: {launches['refine']}")
+    seq = SequenceData.from_build_dir("synthetic", data_root)
+    refined_checkpoint_checks(torch, exp, src_path, path, seq, dev, fits)
+
+    # evaluation and the viewer on the refined checkpoint
+    rec = evaluate.main(["--exp", exp, "--case", "synthetic", "--data_root", data_root,
+                         "--device", dev.type, "--icp_iters", str(REFINE_ICP_ITERS),
+                         "--out_json", os.path.join(exp, "eval_refined.metric.json")])
+    metrics = {k: v for k, v in rec["mean"].items() if isinstance(v, float)}
+    print(f"  evaluate on the refined checkpoint (--icp_iters {REFINE_ICP_ITERS}): {metrics}",
+          flush=True)
+    if not metrics or not all(map(math.isfinite, metrics.values())):
+        raise AssertionError("the refined checkpoint's metrics are not finite")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    out_dir = visualize_ckpt.main(["--exp", exp, "--case", "synthetic", "--data_root", data_root,
+                                   "--device", dev.type])
+    vis_ms = (time.perf_counter() - t0) * 1e3
+    launches["visualize"] = kernel_launches()
+    files = sorted(os.listdir(out_dir))
+    pngs = [f for f in files if f.endswith(".png")]
+    mp4 = os.path.join(out_dir, "overlay.mp4")
+    print(f"  visualize_ckpt: {vis_ms:.3f} ms, {len(pngs)} PNGs, overlay.mp4 "
+          f"{os.path.getsize(mp4) if os.path.exists(mp4) else 0} bytes, viewer.html "
+          f"{'viewer.html' in files}; launches "
+          f"{[k for k, v in launches['visualize'].items() if v] or 'none'}", flush=True)
+    if (len(pngs) != seq.n_frames or not os.path.exists(mp4) or os.path.getsize(mp4) == 0
+            or "viewer.html" not in files or any(launches["visualize"].values())):
+        raise AssertionError("visualize_ckpt's outputs are missing or it launched port kernels")
+
+    fit_iteration_cost(torch, *problems[1])
+    t0 = time.perf_counter()
+    fit_agreement(torch, seq, "one hand", dev)
+    built = generate_sequence(None, FRAMES, IMG_HW, two_hands=True)
+    fit_agreement(torch, SequenceData(built["images"], built["masks"], built["data"]),
+                  "two hands", dev)
+    generator_loops(torch, seq, dev)
+    print(f"  card vs CPU checks and the generator's loops: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hold_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding hold_tpu_torch/", file=sys.stderr)
@@ -2143,6 +2623,7 @@ def main() -> int:
     phase("3 kernel checks")
     results = kernel_checks(torch, seq, args, cfg, dev)
     fast_shape_checks(torch, seq, data_root, dev, results)
+    fast_shade_checks(torch, seq, data_root, dev, results)
 
     phase("4 card vs CPU agreement on a small batch")
     print("  -- chunked shade (--no_fused_train)", flush=True)
@@ -2193,7 +2674,12 @@ def main() -> int:
 
     phase("7 evaluation against the synthetic ground truth")
     evaluation(torch, data_root, args, cfg, dev)
-    print(f"  total {time.perf_counter() - t_all:.1f} s")
+
+    phase(f"8 refinement and viewing: optimize_ckpt --iters {REFINE_ITERS} on step "
+          f"{REFINE_STEP}, evaluate and visualize_ckpt on the refined checkpoint")
+    t8 = time.perf_counter()
+    refinement(torch, data_root, args, dev, launches)
+    print(f"  phase 8 {time.perf_counter() - t8:.1f} s; total {time.perf_counter() - t_all:.1f} s")
 
     kernels = []
     for name, (src, replaces, paths) in KERNELS.items():

@@ -66,6 +66,7 @@ class SequenceData:
         self.hand_ids = [k for k in ("right", "left") if k in self.entities]
         self.case = ""  # the sequence's name, for a sequence read from disk
         self.img_paths: list = []  # the frames' files, for a sequence read from disk
+        self.mask_paths: list = []  # their masks' (None for each when it has none)
 
     @classmethod
     def from_build_dir(cls, case: str, data_root: str = "./data", num_sample: int = 128):
@@ -88,6 +89,7 @@ class SequenceData:
         seq = cls(images, masks, data, num_sample=num_sample)
         seq.case = case
         seq.img_paths = img_paths
+        seq.mask_paths = mask_paths or [None] * len(img_paths)
         return seq
 
     def load_frame(self, idx: int):

@@ -1,7 +1,8 @@
 """Mesh utilities (the part of hold_tpu/utils/mesh.py the port uses, copied
 so that the port imports nothing of the JAX package): the ``Mesh`` container
 and OBJ I/O, vertex-clustering decimation and face normals (numpy, on the
-host), MANO wrist sealing and the one-step Loop subdivision operator.
+host), MANO wrist sealing (faces and vertices) and the one-step Loop
+subdivision operator.
 
 Sealing + one Loop iteration on the fixed MANO topology is a linear operator
 on vertex positions, so it is precomputed once as a dense (V_div x 778)
@@ -107,6 +108,22 @@ def seal_mano_faces(faces: np.ndarray, is_rhand: bool) -> np.ndarray:
     """Close the MANO wrist hole with a 16-triangle fan to vertex 778."""
     seal = SEAL_FACES_R if is_rhand else SEAL_FACES_R[:, [1, 0, 2]]
     return np.concatenate([np.asarray(faces, np.int64), seal], axis=0)
+
+
+def seal_mano_verts(verts):
+    """Append the wrist-ring centroid vertex: (..., 778, 3) -> (..., 779, 3).
+
+    Works on numpy arrays and torch tensors (indexing, mean, concatenation);
+    pair with :func:`seal_mano_faces`.
+    """
+    if isinstance(verts, np.ndarray):
+        center = np.mean(verts[..., SEAL_CIRCLE_V_ID, :], axis=-2, keepdims=True)
+        return np.concatenate([verts, center], axis=-2)
+    import torch
+
+    ring = torch.as_tensor(SEAL_CIRCLE_V_ID, device=verts.device)
+    center = verts[..., ring, :].mean(dim=-2, keepdim=True)
+    return torch.cat([verts, center], dim=-2)
 
 
 def seal_matrix(num_verts: int = 778) -> np.ndarray:

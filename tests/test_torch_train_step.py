@@ -246,7 +246,12 @@ def test_port_entry_points_import_no_jax():
             "hold_tpu_torch.mano.model_data", "hold_tpu_torch.evaluate",
             "hold_tpu_torch.summarize_metrics", "hold_tpu_torch.eval.io_pred",
             "hold_tpu_torch.eval.icp", "hold_tpu_torch.eval.metrics",
-            "hold_tpu_torch.utils.databus", "chip_smoke")
+            "hold_tpu_torch.utils.databus", "hold_tpu_torch.optimize_ckpt",
+            "hold_tpu_torch.visualize_ckpt", "hold_tpu_torch.fitting.silhouette",
+            "hold_tpu_torch.fitting.fit", "hold_tpu_torch.fitting.diagnostics",
+            "hold_tpu_torch.render.html_viewer", "hold_tpu_torch.generator.align",
+            "hold_tpu_torch.generator.register_mano", "hold_tpu_torch.utils.camera",
+            "hold_tpu_torch.utils.debug", "chip_smoke")
     code = (f"import sys, importlib; [importlib.import_module(m) for m in {mods!r}]; "
             "bad = [m for m in ('jax', 'optax', 'orbax') if m in sys.modules]; "
             "assert not bad, bad; "
