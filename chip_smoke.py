@@ -44,8 +44,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    path on the CPU: with the chunked shade (``--no_fused_train``), with the
    fused training shade, and with it on the ``-f`` scene at its shapes (10
    frames x 8 rays: row 7 at 208 points a frame); beside the fused ones,
-   report only, how far the z tables themselves move card vs CPU, and on
-   the CPU with float64 products; then 256 hand and object rays of a frame,
+   how far the z tables themselves move card vs CPU, held to a limit
+   derived from the float64-exponential reading (``Z_MOVED_F64``), with the
+   sampler's exponentials in float32 as the control that must exceed it,
+   and, report only, on the CPU with float64 products; then 256 hand and
+   object rays of a frame,
    the card's z tables given to both sides, composited maps on the card
    against the CPU.
 5. The training slice: ``hold_tpu_torch.train.run_training`` on the
@@ -74,7 +77,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launch counter is set to 0 just before each run.  Every loss must be
    finite and every kernel of a path launched in its run, and none off it;
    one more step of each run under torch.profiler gives the device time of
-   each stage by kernel family.
+   each stage by kernel family.  The fused run streams its metrics to a
+   ``jsonl:`` remote sink.
 6. The render slice: ``hold_tpu_torch.render_cli`` loads the fused run's
    checkpoint and renders two full frames at ``render_downsample`` 2
    (120x160 = 19,200 rays, 4096 a chunk), counters at 0 just before: the
@@ -103,6 +107,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    leaves' gradients, 5 iterations of ``run_fit``; the generator's
    ``fit_mano_to_verts`` and ``AlignmentProblem.fit`` (h, o, ho) on the
    sequence's 12 frames, card against CPU, timed.
+9. Real-format data: an HO3D v3 sequence in the raw layout (12 frames,
+   one without annotations; a cube as the scanned object) through
+   ``process_ho3d``'s CLI, then ``evaluate --gt ho3d`` on the fused run's
+   step-8 checkpoint on the card (every metric finite, no kernel), the
+   card's ``gt_ho3d`` against the CPU's within ``GT_BUS_ATOL``; then a
+   sequence that ``build_dataset.build_from_arrays`` makes from the
+   synthetic sequence's frames, masks, cameras and fits, trained 2 steps
+   (the "built" path).
+10. Data parallel: the slice's defaults for 2 steps from a seed checkpoint
+   at step 9000 (the fused run's step 8, the hand's surface set to cut the
+   rays), validating after each, in one process and in two ranks that share
+   the card through gloo (``parallel.sharding.launch``): the per-term
+   losses, the parameters after each step and the validation psnr held to
+   one process's under ``DP_*`` limits; two controls in the same ranks must
+   fail them (ranks that average their own masked means, ranks that skip
+   the all-reduce); the ranks' parameters equal; each rank's launches.
+   Then one step in an NCCL group of one process, and phase 5's fused run's
+   metrics read back from its ``jsonl:`` remote sink.
+
+Phase 5 also times the sampler stage with its exponentials in float64 (as
+it runs) and in float32 (as before their repair): wall, launches, device
+time.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels (errors, kernel and plain
@@ -125,6 +151,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# phase 5's fused run streams its metrics here (a jsonl: remote sink); phase
+# 10 reads them back
+REMOTE_SPOOL = os.path.join(ROOT, "logs", "chip_smoke", "remote_spool.jsonl")
 STEPS = 6
 FRAMES, IMG_HW = 12, (240, 320)
 BATCH_SIZE, RAYS_PER_FRAME = 5, 128
@@ -143,9 +172,14 @@ SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point
 # fused run resumed for 2 steps), "fast" (phase 5, -f) and "two_hands"
 # (phase 5, a two-hand sequence); the fused and resumed runs validate, so
 # they launch the render kernels too.
-GRAD = ("fused", "layer", "chunked", "resume", "fast", "two_hands")
-FUSED_SAMPLER = ("fused", "chunked", "render", "resume", "fast", "two_hands")
-FUSED_SHADE = ("fused", "layer", "resume", "fast", "two_hands")
+# Phase 9 trains a sequence that build_dataset made ("built"); phase 10 the
+# defaults in one process ("dp_one", validating), in each of two ranks
+# ("dp_rank0", "dp_rank1", validating) and in an NCCL group of one process
+# ("dp_nccl").
+DP_PATHS = ("dp_one", "dp_rank0", "dp_rank1", "dp_nccl")
+GRAD = ("fused", "layer", "chunked", "resume", "fast", "two_hands", "built") + DP_PATHS
+FUSED_SAMPLER = ("fused", "chunked", "render", "resume", "fast", "two_hands", "built") + DP_PATHS
+FUSED_SHADE = ("fused", "layer", "resume", "fast", "two_hands", "built") + DP_PATHS
 KERNELS = {
     "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", ("layer",)),
     "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", GRAD),
@@ -160,9 +194,9 @@ KERNELS = {
     "fused_hand_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:389", ()),
     "fused_object_sampler_sdf": ("fq", "hold_tpu/ops/fused_query.py:419", ()),
     "fused_hand_render": ("fr", "hold_tpu/ops/fused_render.py:480",
-                          ("render", "fused", "resume")),
+                          ("render", "fused", "resume", "dp_one", "dp_rank0", "dp_rank1")),
     "fused_object_render": ("fr", "hold_tpu/ops/fused_render.py:514",
-                            ("render", "fused", "resume")),
+                            ("render", "fused", "resume", "dp_one", "dp_rank0", "dp_rank1")),
     "knn_blend_weights": ("knn", "hold_tpu/ops/knn.py:144", ()),
     "knn_blend_weights_t": ("knn", "hold_tpu/ops/knn.py:254", ()),
 }
@@ -252,6 +286,23 @@ AGREE_LIMIT = (1e-2, 5.0)
 # averaged unit vectors; the mask and depth move with the density, which
 # moves with the sdf's bf16 steps
 RENDER_MAP_TOL = {"rgb": 3e-2, "mask_prob": 3e-2, "normal": 8e-2, "depth": 3e-2}
+# phase 4: the z samples that move farther than 0.1 x their ray's median
+# spacing, card against CPU, in the worst node of each agreement check.
+# The sampler's exponentials are in float64 on both devices; what still
+# moves comes from the sdf, which the card reads through the fused query
+# (bf16, its sums in another order) and the CPU through the plain
+# version.  On an H100 the worst node (the object) moved, in samples of its
+# z table: one hand 24 of 3136 (0.765 %), -f 8 of 2080, two hands 37 of
+# 3136; with the exponentials in float32 (the control) 46, 51 and 126.
+# The limit of each check is that float64 count plus three times its square
+# root (the count's Poisson spread), over the table's samples: 1.234 %,
+# 0.793 % and 1.762 %; each control lies beyond its own.
+Z_MOVED_F64 = {"one hand": 24, "fast": 8, "two hands": 37}
+
+
+def z_moved_limit(case: str, samples: int) -> float:
+    n = Z_MOVED_F64[case]
+    return (n + 3.0 * math.sqrt(n)) / samples
 # the rays of the render checks are the pixels the ground-truth mask marks
 # as hand or object; their composited mask_prob must reach this, or the
 # check would compare background
@@ -1514,16 +1565,36 @@ def sampler_reads_check(torch, calls: list, dev) -> None:
         check_bf16_query(f"{what}, card plain vs CPU plain", card, ref)
 
 
-def z_moved(torch, got, ref) -> str:
-    """The share of the samples of z tables ``got`` that lie farther than 0.1
-    x the median sample spacing from ``ref``'s, and the rays holding them."""
+def z_moved_share(torch, got, ref) -> tuple:
+    """(the share of the samples of z tables ``got`` that lie farther than
+    0.1 x the median sample spacing from ``ref``'s, the rays holding them,
+    the rays)."""
     d = (got.cpu() - ref.cpu()).abs()
     beyond = d > 0.1 * float(torch.diff(ref.cpu(), dim=1).median())
-    return f"{float(beyond.float().mean()):.5f} ({int(beyond.any(dim=1).sum())} of {d.shape[0]} rays)"
+    return float(beyond.float().mean()), int(beyond.any(dim=1).sum()), d.shape[0]
+
+
+def z_moved(torch, got, ref) -> str:
+    share, rays, n = z_moved_share(torch, got, ref)
+    return f"{share:.5f} ({rays} of {n} rays)"
+
+
+@contextlib.contextmanager
+def float32_exponentials(torch):
+    """The error-bound sampler's exponentials in float32, as before their
+    float64 repair (phase 4's control)."""
+    from hold_tpu_torch.render import ray_sampler
+
+    real = ray_sampler._exp64
+    ray_sampler._exp64 = torch.exp
+    try:
+        yield
+    finally:
+        ray_sampler._exp64 = real
 
 
 def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 1,
-                    rays: int = 16) -> None:
+                    rays: int = 16, z_case: str = "one hand") -> None:
     """Phase 4: grad-stage loss and gradients, card kernels vs CPU plain path,
     on ``pairs`` pairs of frames x ``rays`` rays, with the fused training
     shade or the chunked one (``--no_fused_train``).
@@ -1592,18 +1663,38 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 
         if not (math.isfinite(got) and abs(got - v) <= rtol * abs(v) + 1e-5):
             raise AssertionError(f"{k}: card and CPU disagree")
     if fused_train:
-        # report only: how far the z tables themselves move, the card's
-        # against the CPU's and, on the CPU alone, with the products summed
-        # in float64 against without
+        # how far the z tables themselves move: the card's against the CPU's,
+        # held to the limit of ``z_case`` (z_moved_limit); the same with the
+        # sampler's exponentials in float32 on both (the control, which must
+        # exceed it); and, report only, on the CPU alone with the products
+        # summed in float64 against without
         cpu = torch.device("cpu")
         p_cpu, b_cpu = leaf_params(params0, cpu), batch_to_device(batch_np, cpu)
         z_cpu = sample_all_z(p_cpu, scene_cpu, b_cpu, None, step, epoch)
         with products_in_f64(torch):
             z_f64 = sample_all_z(p_cpu, scene_cpu, b_cpu, None, step, epoch)
+        scene_dev = build_scene(opt_model, dict(args), seq.scene_data(), dev)
+        with float32_exponentials(torch):
+            z32_card = sample_all_z(leaf_params(params0, dev), scene_dev,
+                                    batch_to_device(batch_np, dev), None, step, epoch)
+            z32_cpu = sample_all_z(p_cpu, scene_cpu, b_cpu, None, step, epoch)
+        worst, worst32 = 0.0, 0.0
+        limit = z_moved_limit(z_case, z_cpu["object"].numel())
         for nid in scene_cpu.node_ids:
-            print(f"  z table {nid}, samples moved beyond 0.1 x the median spacing (report "
-                  f"only): card vs CPU {z_moved(torch, z_card[nid], z_cpu[nid])}; CPU with "
-                  f"float64 products vs CPU {z_moved(torch, z_f64[nid], z_cpu[nid])}", flush=True)
+            share = z_moved_share(torch, z_card[nid], z_cpu[nid])
+            share32 = z_moved_share(torch, z32_card[nid], z32_cpu[nid])
+            worst, worst32 = max(worst, share[0]), max(worst32, share32[0])
+            print(f"  z table {nid}, samples moved beyond 0.1 x the median spacing: card vs "
+                  f"CPU {share[0]:.5f} ({share[1]} of {share[2]} rays), with float32 "
+                  f"exponentials {share32[0]:.5f} ({share32[1]} of {share32[2]} rays); CPU with "
+                  f"float64 products vs CPU {z_moved(torch, z_f64[nid], z_cpu[nid])} (report "
+                  f"only)", flush=True)
+        print(f"  z tables ({z_case}): worst share card vs CPU {worst:.5f} (limit {limit:.5f}) "
+              f"{'ok' if worst <= limit else 'FAIL'}; the float32 control's "
+              f"{worst32:.5f} {'fails it: ok' if worst32 > limit else 'passes: FAIL'}",
+              flush=True)
+        if worst > limit or worst32 <= limit:
+            raise AssertionError("z tables: card and CPU apart, or the float32 control within")
         with products_in_f64(torch):
             _, grads["f64 products"] = grad_stage(torch.device("cpu"))
         _, grads["chunked"] = grad_stage(torch.device("cpu"), fused=False)
@@ -1717,10 +1808,9 @@ def slice_run(torch, seq, args, cfg, dev, steps: int, path: str | None = None,
         print(f"  step {rec['step']}: loss {rec['loss']:.5f} rgb {rec['loss/rgb']:.5f} "
               f"psnr {rec['psnr']:.3f}")
     print(f"  launches: {launches}")
-    missing = [k for k, (_, _, paths) in KERNELS.items() if path in paths and launches[k] == 0]
-    stray = [k for k, (_, _, paths) in KERNELS.items() if path not in paths and launches[k]]
-    if missing or stray:
-        raise AssertionError(f"{path} run: not launched {missing}, launched off its path {stray}")
+    bad = path_check(path, launches)
+    if bad:
+        raise AssertionError(bad[0])
     summ = timer.summary()
     rays = BATCH_SIZE * 2 * int(args["num_sample"])
     step_s = summ["sampler"] + summ["grad"] + summ["data"]
@@ -1735,6 +1825,16 @@ def slice_run(torch, seq, args, cfg, dev, steps: int, path: str | None = None,
     print(f"  max_memory_allocated_bytes {peak} ({peak / 2**30:.3f} GiB)", flush=True)
     train_profile(torch, seq, args, scene, params, mesh_state, dev, summ)
     return launches, (params, scene, mesh_state, tracker)
+
+
+def path_check(path: str, launches: dict) -> list:
+    """[] when run ``path`` launched each kernel of its path (KERNELS) and
+    none off it, else [what is wrong]."""
+    missing = [k for k, (_, _, paths) in KERNELS.items() if path in paths and launches[k] == 0]
+    stray = [k for k, (_, _, paths) in KERNELS.items() if path not in paths and launches[k]]
+    if missing or stray:
+        return [f"{path} run: not launched {missing}, launched off its path {stray}"]
+    return []
 
 
 def loop_outputs(log_dir: str, at_step: int, val: bool) -> None:
@@ -1825,7 +1925,7 @@ def two_hand_run(torch, args, cfg, dev, launches: dict) -> dict:
     seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=RAYS_PER_FRAME)
     print(f"  -- two hands: the fused agreement at 16 rays ({seq.hand_ids} + object)",
           flush=True)
-    agreement_check(torch, seq, args, cfg, dev, fused_train=True)
+    agreement_check(torch, seq, args, cfg, dev, fused_train=True, z_case="two hands")
     got, run = slice_run(torch, seq, Cfg({**args, "exp_key": "chip_smoke_two_hands"}), cfg, dev,
                          LAYER_STEPS, path="two_hands")
     if run[1].node_ids != ("right", "left", "object"):
@@ -2011,6 +2111,40 @@ def device_split(torch, prof) -> tuple:
     total = sum(ms for ms, _ in fams.values())
     split = ", ".join(f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in fams.items() if n)
     return total, sum(n for _, n in fams.values()), split
+
+
+def sampler_exponentials_cost(torch, seq, args, scene, params, dev) -> None:
+    """Phase 5, report only: the sampler stage at the slice's batch with its
+    exponentials in float64 (the code as it is) and in float32 (as before
+    the repair): the mean wall of 5 synchronised calls each, alternating,
+    and one call's launches and device time under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hold_tpu_torch.models.holdnet import sample_all_z
+    from hold_tpu_torch.train import batch_to_device
+
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(6), BATCH_SIZE, 1,
+                                                   int(args["num_sample"])), dev)
+    gen = torch.Generator(dev).manual_seed(6)
+    step = int(args["total_step"])
+    modes = {"float64": contextlib.nullcontext, "float32": lambda: float32_exponentials(torch)}
+    walls = {m: [] for m in modes}
+    for _ in range(6):
+        for m, ctx in modes.items():
+            with ctx():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sample_all_z(params, scene, batch, gen, step, 0)
+                torch.cuda.synchronize()
+                walls[m].append(time.perf_counter() - t0)
+    for m, ctx in modes.items():
+        with ctx(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sample_all_z(params, scene, batch, gen, step, 0)
+            torch.cuda.synchronize()
+        dev_ms, n, _ = device_split(torch, prof)
+        print(f"  sampler with {m} exponentials: sampler_ms {np.mean(walls[m][1:]) * 1e3:.3f} "
+              f"(mean of 5 after a warm-up), {n} launches, device {dev_ms:.3f} ms", flush=True)
 
 
 def train_profile(torch, seq, args, scene, params, mesh_state, dev, summ) -> None:
@@ -2565,6 +2699,364 @@ def refinement(torch, data_root: str, args, dev, launches: dict) -> None:
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 9: real-format data
+# --------------------------------------------------------------------------
+
+HO3D_FRAMES, HO3D_INVALID = FRAMES, 5  # the raw sequence's frames, the one unannotated
+HO3D_OBJECT = "021_bleach_cleanser"
+# the card's gt_ho3d bus against the CPU's (metres): float32 MANO layers on
+# both, the card's sums in another order; vertices lie within 1 m
+GT_BUS_ATOL = 1e-5
+
+
+def write_ho3d_raw(root: str, seq: str, n_frames: int, invalid: int) -> str:
+    """An HO3D v3 sequence in the raw layout (``rgb/NNNN.jpg`` and
+    ``meta/NNNN.pkl``, frame ``invalid`` without annotations, as real dropped
+    frames are), and the scanned object (a 10 cm cube) in the YCB layout
+    under ``<root>/assets/models``.  Returns the sequence's folder."""
+    import pickle
+
+    import numpy as np
+
+    seq_dir = os.path.join(root, seq)
+    os.makedirs(os.path.join(seq_dir, "rgb"), exist_ok=True)
+    os.makedirs(os.path.join(seq_dir, "meta"), exist_ok=True)
+    rng = np.random.RandomState(1)
+    K = np.array([[614.0, 0, 320.0], [0, 614.0, 240.0], [0, 0, 1]], np.float64)
+    for i in range(n_frames):
+        with open(os.path.join(seq_dir, "rgb", f"{i:04d}.jpg"), "wb") as f:
+            f.write(b"\xff\xd8\xff\xd9")  # jpeg markers; never decoded
+        meta = {"handPose": None, "objTrans": None, "handBeta": None, "objName": HO3D_OBJECT}
+        if i != invalid:
+            meta = {"handPose": rng.randn(48) * 0.1, "handBeta": rng.randn(10) * 0.03,
+                    "handTrans": rng.randn(3) * 0.05 + [0, 0, -0.5],
+                    "objRot": rng.randn(3, 1) * 0.3, "objTrans": rng.randn(3) * 0.05 + [0, 0, -0.5],
+                    "camMat": K, "objName": HO3D_OBJECT}
+        with open(os.path.join(seq_dir, "meta", f"{i:04d}.pkl"), "wb") as f:
+            pickle.dump(meta, f)
+    mdl = os.path.join(root, "assets", "models", HO3D_OBJECT)
+    os.makedirs(mdl, exist_ok=True)
+    corners = [(x, y, z) for z in (-1, 1) for y in (-1, 1) for x in (-1, 1)]
+    tris = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1), (2, 3, 7), (2, 7, 6),
+            (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+    with open(os.path.join(mdl, "textured_simple.obj"), "w") as f:
+        f.writelines(f"v {0.05 * x} {0.05 * y} {0.05 * z}\n" for x, y, z in corners)
+        f.writelines(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in tris)
+    return seq_dir
+
+
+def real_format_data(torch, data_root: str, args, cfg, dev) -> None:
+    """Phase 9: an HO3D v3 raw sequence (HO3D_FRAMES frames, one unannotated)
+    through ``process_ho3d``'s CLI; ``evaluate --gt ho3d`` (on the card) on
+    the fused run's step-8 checkpoint, every metric finite and no kernel
+    launched; the card's ``gt_ho3d`` bus against the CPU's within
+    GT_BUS_ATOL; then a sequence built by ``build_dataset.build_from_arrays``
+    from the synthetic sequence's frames, masks, cameras and fits, read back
+    and trained for 2 steps at the slice's shapes with finite losses."""
+    import numpy as np
+
+    from hold_tpu_torch import evaluate
+    from hold_tpu_torch.data import process_ho3d
+    from hold_tpu_torch.data.dataset import SequenceData, load_K_Rt_from_P
+    from hold_tpu_torch.eval import gt_ho3d
+    from hold_tpu_torch.generator import build_dataset
+    from hold_tpu_torch.utils.config import Cfg
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "logs", "chip_smoke", "ho3d")
+    write_ho3d_raw(os.path.join(root, "raw"), "synthetic", HO3D_FRAMES, HO3D_INVALID)
+    ho3d_root = os.path.join(root, "raw", "assets")
+    npz = process_ho3d.main(["--ho3d_root", os.path.join(root, "raw"), "--seq", "synthetic",
+                             "--out", ho3d_root])
+    valid = np.load(npz)["is_valid"]
+    print(f"  process_ho3d: {npz}, is_valid {valid.tolist()}", flush=True)
+    if valid.sum() != HO3D_FRAMES - 1 or valid[HO3D_INVALID]:
+        raise AssertionError("process_ho3d's is_valid is not the fixture's")
+
+    exp = os.path.join(args["log_root"], args["exp_key"])
+    out_json = os.path.join(exp, "eval_ho3d.metric.json")
+    reset_kernel_launches()
+    t1 = time.perf_counter()
+    rec = evaluate.main(["--exp", exp, "--case", "synthetic", "--data_root", data_root,
+                         "--gt", "ho3d", "--ho3d_root", ho3d_root, "--icp_iters",
+                         str(REFINE_ICP_ITERS), "--out_json", out_json,
+                         "--ckpt", os.path.join(exp, "checkpoints", f"step_{REFINE_STEP:09d}.pt")])
+    wall = time.perf_counter() - t1
+    launched = {k: v for k, v in kernel_launches().items() if v}
+    with open(out_json) as f:
+        written = json.load(f)
+    metrics = {k: v for k, v in written.items() if isinstance(v, float)}
+    print(f"  evaluate --gt ho3d (--icp_iters {REFINE_ICP_ITERS}, on the card): wall "
+          f"{wall * 1e3:.3f} ms (servers {rec['servers_s'] * 1e3:.3f}, metrics and ICP "
+          f"{rec['metrics_s'] * 1e3:.3f}); {metrics}", flush=True)
+    if (set(metrics) != set(rec["per_frame"]) or not all(map(math.isfinite, metrics.values()))
+            or launched):
+        raise AssertionError(f"--gt ho3d: metrics {metrics}, kernels launched {launched}")
+
+    buses = {label: gt_ho3d.load_data("synthetic", data_root, ho3d_root, device=d)
+             for label, d in (("card", dev), ("cpu", torch.device("cpu")))}
+    worst = {k: max_err(torch.as_tensor(v), torch.as_tensor(buses["cpu"][k]))
+             for k, v in buses["card"].items() if k != "faces"}
+    print(f"  gt_ho3d bus, card vs CPU, max |d| (m) {worst} (tol {GT_BUS_ATOL:g})", flush=True)
+    if max(worst.values()) > GT_BUS_ATOL or buses["card"]["v3d_c.right"].shape[0] != HO3D_FRAMES:
+        raise AssertionError("gt_ho3d: the card's bus and the CPU's disagree")
+
+    # build_dataset from the synthetic sequence's frames, cameras and fits
+    src = SequenceData.from_build_dir("synthetic", data_root, num_sample=RAYS_PER_FRAME)
+    cams = src.data["cameras"]
+    kw = [load_K_Rt_from_P(cams[f"world_mat_{i}"][:3, :4]) for i in range(src.n_frames)]
+    w2c = np.stack([np.linalg.inv(c2w) for _, c2w in kw])
+    ent = src.entities
+    entities = build_dataset.entities_from_fits(
+        {h: {"poses": ent[h]["hand_poses"], "betas": ent[h]["mean_shape"],
+             "transl": ent[h]["hand_trans"]} for h in src.hand_ids},
+        ent["object"]["object_poses"], ent["object"]["pts.cano"], ent["object"]["obj_scale"],
+        ent["object"].get("norm_mat"))
+    build_dataset.build_from_arrays(os.path.join(data_root, "built"), src.img_paths,
+                                    src.mask_paths, kw[0][0][:3, :3], w2c, entities)
+    seq = SequenceData.from_build_dir("built", data_root, num_sample=RAYS_PER_FRAME)
+    print(f"  build_from_arrays: {seq.n_frames} frames, scale {seq.scale:.6f} (the source's "
+          f"{src.scale:.6f}), bounding sphere {seq.scene_bounding_sphere}", flush=True)
+    launches, _ = slice_run(torch, seq, Cfg({**args, "case": "built",
+                                             "exp_key": "chip_smoke_built"}), cfg, dev, 2,
+                            path="built")
+    print(f"  phase 9 {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 10: data parallel
+# --------------------------------------------------------------------------
+
+DP_START = 9000  # the sparse terms' weight min(step, 30000) / 30000 is 0.3
+DP_STEPS = 2
+DP_WORLD = 2
+# the seed state's hand surface: the SDF head's bias set so that the hand's
+# canonical sphere (radius 0.6 at init, with every ray inside it and every
+# mask_prob 1) cuts the rays; then the ranks' own masked means differ from
+# the global one
+DP_HAND_RADIUS = 0.05
+DP_SDF_BIAS = "right/implicit/layers/8/b"
+# two ranks against one process (one card, gloo): the first step's loss
+# terms and psnr within DP_LOSS_RTOL of the one process's (relative; the
+# parameters are the same there, the ranks only sum their rays in two
+# halves); after each step, at most DP_MOVED_SHARE of the parameters'
+# elements more than DP_MOVED_AT x lr apart (each rank's fused shade sums
+# its bf16 gradient parts over its own points, so the averaged gradient
+# differs from one process's by the kernel's rounding, and Adam turns the
+# difference into steps); the validation psnr within DP_VAL_RTOL.  Read on
+# an H100 over two calls: the split run 1.4-1.5e-7, 0.033-0.035 % and
+# 0.94-1.8 % (after steps 1 and 2), 1.6-1.9e-6; the local-mean control
+# 8.7-9.1e-2 on the first step; the no-all-reduce control 48-49 % and 58 %
+# of the elements.  Each limit lies well above the split run's reading and
+# below the control it catches.
+DP_LOSS_RTOL = 1e-5
+DP_MOVED_AT = 1e-2
+DP_MOVED_SHARE = 0.05
+DP_VAL_RTOL = 1e-4
+DP_VARIANTS = ("split", "local_mean", "no_allreduce")
+
+
+def dp_args(args, cfg, exp_key: str, vis: bool):
+    from hold_tpu_torch.utils.config import Cfg
+
+    # one step an epoch: a checkpoint (and a validation) after every step
+    return Cfg({**args, "exp_key": exp_key, "tempo_len": cfg["dataset"]["train"]["batch_size"],
+                "eval_every_epoch": 1, "no_vis": not vis, "total_step": DP_START + DP_STEPS})
+
+
+def dp_worker(rank: int, world: int, device, args, cfg, data_root: str) -> dict:
+    """One rank of phase 10 (a process of its own, in a gloo group with the
+    other): the three variants in turn, each from its own copy of the seed
+    checkpoint.  Returns each variant's kernel launches, its wall and a
+    digest of its final parameters."""
+    from contextlib import nullcontext
+    from unittest import mock
+
+    import torch
+
+    from hold_tpu_torch import train
+    from hold_tpu_torch.data.dataset import SequenceData
+    from hold_tpu_torch.models.losses import compute_losses
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seq = SequenceData.from_build_dir("synthetic", data_root, num_sample=RAYS_PER_FRAME)
+    controls = {
+        "split": {},
+        # each rank's masked mean over its own rays, averaged over the ranks
+        "local_mean": {"compute_losses": lambda b, o, ids, step, split=None:
+                       compute_losses(b, o, ids, step, None)},
+        # each rank steps on its own gradients
+        "no_allreduce": {"average_gradients": lambda params, split: None},
+    }
+    out = {}
+    for name in DP_VARIANTS:
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        with mock.patch.multiple(train, **controls[name]) if controls[name] else nullcontext():
+            run = train.run_training(dp_args(args, cfg, f"dp_{name}", name == "split"), cfg,
+                                     seq=seq, device=device)
+        params, timer = run[0], run[4]
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        flat = torch.cat([p.detach().reshape(-1) for p in
+                          train.flatten_params(params).values()]).cpu()
+        out[name] = {"launches": kernel_launches(), "s": time.perf_counter() - t0,
+                     "digest": flat, "phases": timer.summary()}
+    return out
+
+
+def dp_records(log_root: str, key: str) -> dict:
+    with open(os.path.join(log_root, key, "metrics.jsonl")) as f:
+        return {r["step"]: r for r in map(json.loads, f)}
+
+
+def dp_gaps(torch, log_root: str, key: str, lr: float) -> dict:
+    """Run ``key`` against the one-process run: "loss", {step: the worst
+    relative gap of the step's loss terms and psnr}; "max", {step: the
+    worst |d| of a parameter after it}; "moved", {step: the share of the
+    parameters' elements that lie more than DP_MOVED_AT x lr apart after
+    it}; "val", the validation psnrs' worst relative gap (None without)."""
+    from hold_tpu_torch.utils.checkpoint import read_checkpoint
+
+    ref, got = dp_records(log_root, "dp_one"), dp_records(log_root, key)
+    out = {"loss": {s: max(abs(got[s][k] - v) / max(abs(v), 1e-12) for k, v in ref[s].items()
+                           if k.startswith("loss") or k == "psnr")
+                    for s in range(DP_START, DP_START + DP_STEPS)}, "max": {}, "moved": {}}
+    for s in range(DP_START + 1, DP_START + DP_STEPS + 1):
+        a, b = (read_checkpoint(os.path.join(log_root, k, "checkpoints", f"step_{s:09d}.pt"))
+                ["params"] for k in (key, "dp_one"))
+        d = torch.cat([(a[n] - b[n]).abs().reshape(-1) for n in b])
+        out["max"][s] = float(d.max())
+        out["moved"][s] = float((d > DP_MOVED_AT * lr).double().mean())
+    vref = [r["val/psnr"] for r in ref.values() if "val/psnr" in r]
+    vgot = [r["val/psnr"] for r in got.values() if "val/psnr" in r]
+    out["val"] = (max(abs(x - y) / abs(y) for x, y in zip(vgot, vref)) if vref and vgot
+                  else None)
+    return out
+
+
+def data_parallel(torch, data_root: str, args, cfg, dev) -> dict:
+    """Phase 10: the default slice (1280 rays, one hand and the object, full
+    width) for DP_STEPS steps from a seed checkpoint at step DP_START (the
+    fused run's step-8 parameters, the hand's surface set to cut the rays),
+    validating after each step: once in this process, then in DP_WORLD ranks
+    sharing the card through gloo (``parallel.sharding.launch``), then the
+    two controls in those ranks, which must fail the limits: ranks that
+    average their own masked means, ranks that skip the gradient
+    all-reduce.  Then one step in an NCCL group of one process.  Each rank's
+    launches and every run's wall are printed; then phase 5's fused run's
+    metrics read back from its ``jsonl:`` remote sink."""
+    import torch.distributed as dist
+
+    from hold_tpu_torch.data.dataset import SequenceData
+    from hold_tpu_torch.parallel import sharding
+    from hold_tpu_torch.train import run_training
+    from hold_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
+
+    t0 = time.perf_counter()
+    log_root = args["log_root"]
+    seed = read_checkpoint(os.path.join(log_root, args["exp_key"], "checkpoints",
+                                        f"step_{REFINE_STEP:09d}.pt"))
+    seed["step"] = DP_START
+    seed["params"][DP_SDF_BIAS][0] = -DP_HAND_RADIUS
+    for key in ("one", "nccl") + DP_VARIANTS:
+        shutil.rmtree(os.path.join(log_root, f"dp_{key}"), ignore_errors=True)
+        save_checkpoint(os.path.join(log_root, f"dp_{key}"), DP_START, seed)
+    seq = SequenceData.from_build_dir("synthetic", data_root, num_sample=RAYS_PER_FRAME)
+
+    reset_kernel_launches()
+    t1 = time.perf_counter()
+    ph = run_training(dp_args(args, cfg, "dp_one", True), cfg, seq=seq, device=dev)[4].summary()
+    torch.cuda.synchronize()
+    one_s, one_launches = time.perf_counter() - t1, kernel_launches()
+    print(f"  one process: {one_s * 1e3:.3f} ms (steps, checkpoints and validations); sampler_ms "
+          f"{ph['sampler'] * 1e3:.3f}, grad_ms {ph['grad'] * 1e3:.3f} (the second step); "
+          f"launches { {k: v for k, v in one_launches.items() if v} }", flush=True)
+
+    t1 = time.perf_counter()
+    ranks = sharding.launch(dp_worker, DP_WORLD, [str(dev)] * DP_WORLD,
+                            (args, cfg, data_root), backend="gloo", timeout=600)
+    print(f"  {DP_WORLD} ranks (gloo, one card), {len(DP_VARIANTS)} runs each: "
+          f"{(time.perf_counter() - t1) * 1e3:.3f} ms with the processes' start", flush=True)
+    for r, res in enumerate(ranks):
+        for name in DP_VARIANTS:
+            ph = res[name]["phases"]
+            print(f"  rank {r} {name}: {res[name]['s'] * 1e3:.3f} ms; sampler_ms "
+                  f"{ph['sampler'] * 1e3:.3f}, grad_ms {ph['grad'] * 1e3:.3f} (the second step); "
+                  f"launches { {k: v for k, v in res[name]['launches'].items() if v} }",
+                  flush=True)
+    same = torch.equal(ranks[0]["split"]["digest"], ranks[1]["split"]["digest"])
+    apart = not torch.equal(ranks[0]["no_allreduce"]["digest"], ranks[1]["no_allreduce"]["digest"])
+    print(f"  ranks' parameters after the split run equal: {same}; after no_allreduce "
+          f"apart: {apart}", flush=True)
+    failed = []
+    lr = float(args["lr"])
+    for name in DP_VARIANTS:
+        g = dp_gaps(torch, log_root, f"dp_{name}", lr)
+        first = g["loss"][DP_START]
+        within = (first <= DP_LOSS_RTOL and max(g["moved"].values()) <= DP_MOVED_SHARE
+                  and (g["val"] is None or g["val"] <= DP_VAL_RTOL))
+        print(f"  {name} vs one process: the first step's loss terms' worst relative gap "
+              f"{first:.3e} (limit {DP_LOSS_RTOL:g}); parameters apart by more than "
+              f"{DP_MOVED_AT:g} x lr after each step, share "
+              f"{ {s: f'{v:.3e}' for s, v in g['moved'].items()} } (limit {DP_MOVED_SHARE:g}); "
+              f"validation psnr gap {'-' if g['val'] is None else format(g['val'], '.3e')} "
+              f"(limit {DP_VAL_RTOL:g}): {'within' if within else 'beyond'}; report only: the "
+              f"later steps' loss gaps { {s: f'{v:.3e}' for s, v in g['loss'].items()} }, the "
+              f"worst |d| { {s: f'{v:.3e}' for s, v in g['max'].items()} }", flush=True)
+        if within != (name == "split"):
+            failed.append(name)
+    for name in DP_VARIANTS:
+        if ranks[0][name]["launches"] != ranks[1][name]["launches"]:
+            failed.append(f"{name} launches differ between the ranks")
+    if not same or not apart:
+        failed.append(f"ranks' parameters equal {same}, apart without the all-reduce {apart}")
+    for path, got in (("dp_one", one_launches), ("dp_rank0", ranks[0]["split"]["launches"]),
+                      ("dp_rank1", ranks[1]["split"]["launches"])):
+        failed += path_check(path, got)
+
+    # one step in an NCCL group of one process: the split path on NCCL
+    port = sharding.free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        a = dp_args(args, cfg, "dp_nccl", False)
+        a["total_step"] = DP_START + 1
+        reset_kernel_launches()
+        run_training(a, cfg, seq=seq, device=dev)
+        nccl_launches = kernel_launches()
+    finally:
+        dist.destroy_process_group()
+    ref, got = dp_records(log_root, "dp_one")[DP_START], dp_records(log_root, "dp_nccl")[DP_START]
+    gap = max(abs(got[k] - v) / max(abs(v), 1e-12) for k, v in ref.items()
+              if k.startswith("loss") or k == "psnr")
+    print(f"  NCCL, world 1, one step: loss terms' worst relative gap to one process {gap:.3e} "
+          f"(limit {DP_LOSS_RTOL:g}); launches { {k: v for k, v in nccl_launches.items() if v} }",
+          flush=True)
+    if gap > DP_LOSS_RTOL:
+        failed.append("nccl")
+    failed += path_check("dp_nccl", nccl_launches)
+
+    # phase 5's fused run, its metrics through the jsonl: sink
+    with open(REMOTE_SPOOL) as f:
+        streamed = [r["data"] for r in map(json.loads, f) if r["kind"] == "metrics"]
+    with open(os.path.join(log_root, args["exp_key"], "metrics.jsonl")) as f:
+        local = [json.loads(line) for line in f]
+    equal = local[:len(streamed)] == streamed
+    print(f"  remote sink: {len(streamed)} metric records streamed (phase 5's fused run and its "
+          f"resumption), {len(local)} in its metrics.jsonl; the streamed ones are its first: "
+          f"{equal}", flush=True)
+    if len(streamed) < STEPS + 2 or not equal:
+        failed.append("remote sink")
+    print(f"  phase 10 {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"data parallel: {failed}")
+    return {"dp_one": one_launches, "dp_rank0": ranks[0]["split"]["launches"],
+            "dp_rank1": ranks[1]["split"]["launches"], "dp_nccl": nccl_launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "hold_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding hold_tpu_torch/", file=sys.stderr)
@@ -2634,7 +3126,7 @@ def main() -> int:
           flush=True)
     fast_args, fast_cfg = fast_config(data_root)
     agreement_check(torch, seq, fast_args, fast_cfg, dev, fused_train=True, pairs=BATCH_SIZE,
-                    rays=int(fast_args["num_sample"]))
+                    rays=int(fast_args["num_sample"]), z_case="fast")
     print("  -- render", flush=True)
     render_agreement(torch, seq, args, cfg, dev)
 
@@ -2647,9 +3139,11 @@ def main() -> int:
     # the cadence meshes at epoch 3 after the last step, on its worker
     # thread, and checkpoints and validates there
     fused_args = Cfg({**args, "no_meshing": False, "tempo_len": 2 * BATCH_SIZE, "no_vis": False,
-                      "eval_every_epoch": 3})
+                      "eval_every_epoch": 3, "mute": False,
+                      "remote_track": f"jsonl:{REMOTE_SPOOL}"})
     fused_launches, fused = slice_run(torch, seq, fused_args, cfg, dev, STEPS)
     loop_outputs(fused[3].log_dir, STEPS, val=True)
+    sampler_exponentials_cost(torch, seq, args, fused[1], fused[0], dev)
     print("  -- canonical meshing and the object's mesh state", flush=True)
     meshing_checks(torch, seq, args, dev, fused)
     del fused
@@ -2680,6 +3174,15 @@ def main() -> int:
     t8 = time.perf_counter()
     refinement(torch, data_root, args, dev, launches)
     print(f"  phase 8 {time.perf_counter() - t8:.1f} s; total {time.perf_counter() - t_all:.1f} s")
+
+    phase(f"9 real-format data: an HO3D v3 sequence through process_ho3d, evaluate --gt ho3d, "
+          f"a build_dataset sequence trained for 2 steps")
+    launches["built"] = real_format_data(torch, data_root, args, cfg, dev)
+
+    phase(f"10 data parallel: {DP_STEPS} steps in one process and in {DP_WORLD} ranks (gloo, "
+          f"one card), two controls, one NCCL step, the remote sink")
+    launches.update(data_parallel(torch, data_root, args, cfg, dev))
+    print(f"  total {time.perf_counter() - t_all:.1f} s", flush=True)
 
     kernels = []
     for name, (src, replaces, paths) in KERNELS.items():

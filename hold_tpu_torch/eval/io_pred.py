@@ -118,8 +118,8 @@ def gt_from_sequence(seq, device) -> DataBus:
     synthetic sequences, whose data.npy is the truth.  A noised-init
     sequence (``data/synthetic.py`` ``pose_noise``) keeps the true poses as
     ``entities_gt`` while ``entities`` holds the perturbed init; the truth
-    is used.  Real captures need the dataset-specific loaders, which are not
-    ported."""
+    is used.  Real captures take the dataset-specific loaders
+    (``eval/gt_ho3d.py``, ``eval/gt_arctic.py``)."""
     entities = seq.data.get("entities_gt", seq.entities)
     n = seq.n_frames
     inv_scale, normalize_shift = _eval_space(seq)

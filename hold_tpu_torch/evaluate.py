@@ -1,7 +1,8 @@
 """Evaluation entry point:
 
     python -m hold_tpu_torch.evaluate --exp <logs/key> --case <seq> [--ckpt PATH]
-        [--gt synthetic] [--icp_iters 600] [--icp_every_frame] [--device cuda|cpu]
+        [--gt synthetic|ho3d] [--ho3d_root DIR] [--icp_iters 600] [--icp_every_frame]
+        [--device cuda|cpu]
 
 Counterpart of hold_tpu/evaluate.py, with its metric registry and output
 format (the reference's code/evaluate.py:9-90): {mpjpe_ra_r, mrrpe_ho,
@@ -9,8 +10,12 @@ cd_f_ra, cd_f_right, icp} -> the means as JSON (<exp>/eval.metric.json) and
 the per-frame values (<exp>/eval.metric_all.npy).  The predictions come from
 the experiment's checkpoint through its MANO and object servers, on the card
 unless asked for the CPU; the metrics and the ICP run on the host.  Ground
-truth: the synthetic sequence's build parameters (``--gt synthetic``); the
-HO3D loader is not ported.
+truth: the synthetic sequence's build parameters (``--gt synthetic``), or
+HO3D v3's annotations (``--gt ho3d``: ``eval/gt_ho3d.py`` reads
+``<ho3d_root>/processed/<seq>.npz``, which ``data/process_ho3d.py`` writes,
+and the scanned object under ``<ho3d_root>/models``; the MANO layer runs on
+the same device).  ``--ho3d_root`` is the port's: the JAX package reads
+its default, ``./generator/assets/ho3d_v3``, always.
 """
 
 from __future__ import annotations
@@ -129,6 +134,8 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--data_root", default="./data")
     ap.add_argument("--gt", default="synthetic", choices=["synthetic", "ho3d"],
                     help="ground-truth source")
+    ap.add_argument("--ho3d_root", default="./generator/assets/ho3d_v3",
+                    help="processed HO3D annotations and object models (--gt ho3d)")
     ap.add_argument("--icp_iters", type=int, default=600)
     ap.add_argument("--icp_every_frame", action="store_true",
                     help="per-frame short-ICP variant (eval_modules.py:75)")
@@ -142,10 +149,6 @@ def main(argv=None) -> dict:
     ground truth's wall (checkpoint, servers, mapping to eval space),
     "metrics_s": the metrics' and the ICP's wall (host)}."""
     args = build_argparser().parse_args(argv)
-    if args.gt != "synthetic":
-        raise NotImplementedError(
-            f"--gt {args.gt}: the dataset-specific ground-truth loaders (eval/gt_ho3d.py) are "
-            "not ported yet (ROADMAP.md, Queue 1 item 7)")
     from .data.dataset import SequenceData
     from .eval.io_pred import gt_from_sequence, load_data
     from .utils.config import resolve_device
@@ -154,7 +157,12 @@ def main(argv=None) -> dict:
     seq = SequenceData.from_build_dir(args.case, args.data_root)
     t0 = time.perf_counter()
     pred = load_data(args.exp, seq, device, ckpt=args.ckpt)
-    gt = gt_from_sequence(seq, device)
+    if args.gt == "synthetic":
+        gt = gt_from_sequence(seq, device)
+    else:
+        from .eval.gt_ho3d import load_data as load_gt_ho3d
+
+        gt = load_gt_ho3d(args.case, args.data_root, args.ho3d_root, device=device)
     servers_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mean_metrics, metric_dict = run_evaluation(pred, gt, args.icp_iters,

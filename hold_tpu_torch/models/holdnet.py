@@ -34,6 +34,7 @@ from ..ops.sampling import (
     point_in_space_sample,
     sample_on_mesh_barycentric,
 )
+from ..parallel.sharding import generator_of, ray_rand
 from ..render.background import background_forward, background_plans, init_background
 from ..render.ray_sampler import SamplerConfig, inverse_sphere_z_vals
 from ..render.volsdf import get_camera_rays, merge_factors, volumetric_render
@@ -266,23 +267,25 @@ def object_mesh_state_from_mesh(vertices: np.ndarray, faces: np.ndarray, device)
     }
 
 
-def sample_step_draws(scene: Scene, B: int, P: int, gen: torch.Generator) -> dict:
+def sample_step_draws(scene: Scene, B: int, P: int, gen) -> dict:
     """Every random number one training step's loss targets and background
-    use, made from ``gen`` on the scene's device."""
+    use, made from ``gen`` on the scene's device.  With a
+    ``parallel.sharding.RankDraws`` the background's per-ray draws are this
+    rank's slice of every rank's; the rest are the same on every rank."""
     dev = scene.device
+    g = generator_of(gen)
     draws = {}
     for nid in scene.node_ids:
         if nid == "object":
             n_centers = OBJ_CENTERS
         else:
             faces_div = scene.sub_ops[nid][1]
-            draws[f"{nid}.bary"] = draw_barycentric(gen, B, N_SURF, faces_div.shape[0], dev)
-            draws[f"{nid}.surf"] = draw_point_in_space(gen, B, N_SURF, 0.20, dev)
+            draws[f"{nid}.bary"] = draw_barycentric(g, B, N_SURF, faces_div.shape[0], dev)
+            draws[f"{nid}.surf"] = draw_point_in_space(g, B, N_SURF, 0.20, dev)
             n_centers = scene.servers[nid].verts_c.shape[1]
-        draws[f"{nid}.eik_idx"] = torch.randperm(n_centers, generator=gen, device=dev)[:N_SURF]
-        draws[f"{nid}.eik"] = draw_point_in_space(gen, B, min(n_centers, N_SURF), 0.20, dev)
-    draws["bg_u"] = torch.rand((B * P, scene.sampler_cfg.N_samples_inverse_sphere),
-                               generator=gen, device=dev)
+        draws[f"{nid}.eik_idx"] = torch.randperm(n_centers, generator=g, device=dev)[:N_SURF]
+        draws[f"{nid}.eik"] = draw_point_in_space(g, B, min(n_centers, N_SURF), 0.20, dev)
+    draws["bg_u"] = ray_rand(gen, (B * P, scene.sampler_cfg.N_samples_inverse_sphere), dev)
     return draws
 
 

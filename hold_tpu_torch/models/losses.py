@@ -1,5 +1,14 @@
 """Training losses and schedules (counterpart of hold_tpu/models/losses.py).
-Masked index-selects become masked means, as in the JAX package."""
+Masked index-selects become masked means, as in the JAX package.
+
+Over several processes (``split``, a ``parallel.sharding.RaySplit``) each
+rank holds an equal share of the step's rays and the gradients are averaged
+over the ranks.  A sum over the rays divided by the rank's own row count
+(``rgb_loss``, ``sem_loss``) then needs no collective: the ranks' means
+average to the mean over every ray.  A masked mean does: its denominator is
+the mask's count over every rank (``masked_mean``).  The eikonal, surface
+and off-surface terms are drawn the same on every rank and average to
+themselves."""
 
 from __future__ import annotations
 
@@ -12,9 +21,16 @@ from ..utils.transforms import safe_norm
 MILESTONE = 30000
 
 
-def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, split=None) -> torch.Tensor:
+    """sum(values * mask) / sum(mask).  With ``split`` the denominator is the
+    count over every rank and the result is scaled by the world size, so
+    that the ranks' values (and gradients) average to the mean over every
+    rank's rays."""
     mask = mask.expand(values.shape).to(values.dtype)
-    return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1e-6)
+    if split is None:
+        return torch.sum(values * mask) / torch.clamp(torch.sum(mask), min=1e-6)
+    count = split.sum(torch.sum(mask))
+    return torch.sum(values * mask) * split.world / torch.clamp(count, min=1e-6)
 
 
 def rgb_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -43,8 +59,9 @@ def eikonal_loss(grad_theta: torch.Tensor) -> torch.Tensor:
     return torch.mean((safe_norm(grad_theta) - 1.0) ** 2)
 
 
-def opacity_sparse_loss(mask_prob: torch.Tensor, off_surface: torch.Tensor) -> torch.Tensor:
-    return masked_mean(torch.abs(mask_prob[:, 0]), off_surface.float())
+def opacity_sparse_loss(mask_prob: torch.Tensor, off_surface: torch.Tensor,
+                        split=None) -> torch.Tensor:
+    return masked_mean(torch.abs(mask_prob[:, 0]), off_surface.float(), split)
 
 
 def mano_cano_loss(pred_sdf, gt_sdf, limit: float = 0.01) -> torch.Tensor:
@@ -52,8 +69,10 @@ def mano_cano_loss(pred_sdf, gt_sdf, limit: float = 0.01) -> torch.Tensor:
                                 - torch.clamp(gt_sdf, -limit, limit)))
 
 
-def compute_losses(batch: dict, outputs: dict, node_ids, step: int) -> dict:
-    """batch: gt_rgb (R,3), gt_mask (R,); outputs from holdnet_forward."""
+def compute_losses(batch: dict, outputs: dict, node_ids, step: int, split=None) -> dict:
+    """batch: gt_rgb (R,3), gt_mask (R,); outputs from holdnet_forward;
+    ``split``: this rank's share of the rays over several processes, None
+    in one process."""
     prog = min(step, MILESTONE) / MILESTONE
     w_sem = 1.1 + (0.1 - 1.1) * prog
 
@@ -66,7 +85,7 @@ def compute_losses(batch: dict, outputs: dict, node_ids, step: int) -> dict:
         if f"{nid}.index_off_surface" in outputs:
             active = outputs[f"{nid}.active"]
             sparse = sparse + active * opacity_sparse_loss(
-                outputs[f"{nid}.mask_prob"], outputs[f"{nid}.index_off_surface"]
+                outputs[f"{nid}.mask_prob"], outputs[f"{nid}.index_off_surface"], split
             )
             eik = eik + active * eikonal_loss(outputs[f"{nid}.grad_theta"])
         if f"{nid}.pts2mano_sdf_cano" in outputs:

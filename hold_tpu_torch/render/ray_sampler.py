@@ -5,7 +5,9 @@ The refinement loop runs ``max_total_iters`` rounds for every ray (per-ray
 convergence collapses beta to beta0; no global early exit), exactly as the
 JAX package does.  Random draws come from a ``torch.Generator``; with
 ``gen=None`` every draw is replaced by the deterministic grid, which is what
-the JAX functions do with ``rng=None``.
+the JAX functions do with ``rng=None``.  A ``parallel.sharding.RankDraws``
+in its place makes each per-ray draw for the rays of every rank and keeps
+this rank's, so that a ray's samples are those it gets in one process.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel.sharding import generator_of, ray_rand
 from .volsdf import get_sphere_intersections
 
 
@@ -35,8 +38,13 @@ class SamplerConfig(NamedTuple):
     conv_check: str = "current"
 
 
-def _rand(gen, shape, device):
-    return torch.rand(shape, generator=gen, device=device)
+def _exp64(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) computed in float64 and rounded back to x's dtype.  The error
+    bound's and the transmittance's exponentials go through it: in float32
+    the card's and the CPU's last bits differ, which flips the bisection's
+    ``<= eps`` tests and, through the inverse-CDF search, moves whole
+    samples; rounded from float64 both devices agree."""
+    return torch.exp(x.double()).to(x.dtype)
 
 
 def _stratify(z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -55,7 +63,7 @@ def uniform_z_vals(gen, ray_dirs, cam_loc, near, far, N: int):
     far = far.reshape(-1, 1).expand(R, 1)
     z = near * (1.0 - t)[None] + far * t[None]
     if gen is not None:
-        z = _stratify(z, _rand(gen, z.shape, z.device))
+        z = _stratify(z, ray_rand(gen, z.shape, z.device))
     return z
 
 
@@ -67,11 +75,11 @@ def _error_bound(beta, sdf, dists, d_star):
     """Per-ray max opacity error bound.  beta (R,1); sdf (R,S); dists and
     d_star (R,S-1)."""
     density = _laplace_density_beta(sdf, beta)
-    err_per_sec = torch.exp(-d_star / beta) * (dists ** 2) / (4.0 * beta ** 2)
+    err_per_sec = _exp64(-d_star / beta) * (dists ** 2) / (4.0 * beta ** 2)
     shifted = torch.cat([torch.zeros_like(dists[:, :1]), dists * density[:, :-1]], dim=-1)
     integral = torch.cumsum(shifted, dim=-1)
     err_int = torch.cumsum(err_per_sec, dim=-1)
-    bound = (torch.clamp(torch.exp(err_int), max=1e6) - 1.0) * torch.exp(-integral[:, :-1])
+    bound = (torch.clamp(_exp64(err_int), max=1e6) - 1.0) * _exp64(-integral[:, :-1])
     return torch.amax(bound, dim=-1)
 
 
@@ -166,7 +174,7 @@ def error_bound_z_vals(
         dists_inf = torch.cat([dists, torch.full((R, 1), 1e10, device=dev)], dim=-1)
         free_energy = dists_inf * _laplace_density_beta(sdf, beta[:, None])
         shifted = torch.cat([torch.zeros((R, 1), device=dev), free_energy[:, :-1]], dim=-1)
-        return torch.exp(-torch.cumsum(shifted, dim=-1)), free_energy, dists_inf
+        return _exp64(-torch.cumsum(shifted, dim=-1)), free_energy, dists_inf
 
     for _ in range(cfg.max_total_iters - 1):
         dists = z_vals[:, 1:] - z_vals[:, :-1]
@@ -175,11 +183,11 @@ def error_bound_z_vals(
 
         transmittance, _, dists_inf = transmittance_and_free(z_vals, sdf, beta)
         err_per_sec = (
-            torch.exp(-d_star / beta[:, None]) * (dists_inf[:, :-1] ** 2)
+            _exp64(-d_star / beta[:, None]) * (dists_inf[:, :-1] ** 2)
             / (4.0 * beta[:, None] ** 2)
         )
         err_int = torch.cumsum(err_per_sec, dim=-1)
-        bound_opacity = (torch.clamp(torch.exp(err_int), max=1e6) - 1.0) * transmittance[:, :-1]
+        bound_opacity = (torch.clamp(_exp64(err_int), max=1e6) - 1.0) * transmittance[:, :-1]
         pdf = bound_opacity + cfg.add_tiny
         pdf = pdf / torch.clamp(torch.sum(pdf, dim=-1, keepdim=True), min=1e-30)
         cdf = torch.cumsum(pdf, dim=-1)
@@ -196,14 +204,14 @@ def error_bound_z_vals(
     d_star = _d_star(z_vals, sdf)
     beta = bisect(beta, sdf, dists, d_star)
     transmittance, free_energy, _ = transmittance_and_free(z_vals, sdf, beta)
-    weights = (1.0 - torch.exp(-free_energy)) * transmittance
+    weights = (1.0 - _exp64(-free_energy)) * transmittance
 
     pdf = weights[:, :-1] + 1e-5
     pdf = pdf / torch.sum(pdf, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)
     N = cfg.N_samples
     if gen is not None:
-        u = _rand(gen, (R, N), dev)
+        u = ray_rand(gen, (R, N), dev)
     else:
         u = torch.linspace(0.0, 1.0, N, device=dev)[None].expand(R, N)
     z_samples = sample_pdf(z_vals, cdf, u)
@@ -211,7 +219,7 @@ def error_bound_z_vals(
     if cfg.N_samples_extra > 0:
         M = z_vals.shape[1]
         if gen is not None:
-            idx = torch.randperm(M, generator=gen, device=dev)[: cfg.N_samples_extra]
+            idx = torch.randperm(M, generator=generator_of(gen), device=dev)[: cfg.N_samples_extra]
         else:
             idx = torch.linspace(0, M - 1, cfg.N_samples_extra, device=dev).long()
         z_extra = torch.cat([near, far, z_vals[:, idx]], dim=-1)

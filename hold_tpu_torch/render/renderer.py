@@ -4,7 +4,9 @@
 Each chunk of pixels runs the eval sampler (``sample_all_z`` with no
 generator: the deterministic grid) and then ``holdnet_render``.  Chunk
 outputs stay on the device until the frame is done; one copy to the host at
-the end.  One device: multi-GPU rendering is not ported.
+the end.  Over several processes, ``parallel.sharding.split_chunk_renderer``
+splits each chunk's pixels over the ranks (the training loop's validation
+frames); ``render_cli`` renders on one device.
 """
 
 from __future__ import annotations

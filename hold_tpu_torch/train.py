@@ -25,6 +25,18 @@ the parameters, written to ``mesh_cano/mesh_cano_<node>_step_<step>.obj`` and
 terms) is adopted at the next step boundary.  ``-f`` shortens the sampler
 (16 / 32 / 8 samples, 2 rounds) and meshes at once.  It runs on the card
 unless asked for the CPU (``--device cpu``, ``device="cpu"``).
+
+Over several processes (``--num_devices N``: N local processes, one a card,
+NCCL; with ``--device cpu`` N gloo processes on the CPU; or
+``--coordinator host:port --num_processes N --process_id R`` for one
+process of a run over several hosts) the run is the same run as in one
+process: every rank starts from the same parameters and Adam state (rank
+0's, broadcast), draws the same global batch and keeps its slice of each
+frame's rays (``parallel/sharding.py``), and the gradients are averaged
+over the ranks before Adam's step.  Only rank 0 writes checkpoints, logs,
+validation images and meshes; it meshes, and its object mesh state is
+broadcast to every rank at the step boundary where rank 0 adopts it.  A
+validation frame's render chunks are split over the ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +60,18 @@ from .models.holdnet import (
     sample_step_draws,
 )
 from .models.losses import compute_losses
+from .parallel.sharding import (
+    RankDraws,
+    average_gradients,
+    current_split,
+    init_distributed,
+    launch,
+    local_device,
+    local_process_count,
+    rank_devices,
+    shard_batch,
+    split_chunk_renderer,
+)
 from .render.renderer import make_chunk_renderer, outputs_to_panel, render_frame
 from .utils.checkpoint import (
     latest_checkpoint,
@@ -59,8 +83,8 @@ from .utils.checkpoint import (
 )
 from .utils.config import parse_args, resolve_device
 from .utils.convert import detached_copy, flatten_params
-from .utils.logger import StepTimer, Tracker
-from .utils.metrics import psnr
+from .utils.logger import StepTimer, Tracker, make_exp_key
+from .utils.metrics import psnr, psnr_from_mse
 
 
 # ``-f`` (fast dev run): the sampler's samples a ray and rounds
@@ -126,10 +150,15 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def make_train_step(scene, optimizer, timer: StepTimer | None = None):
+def make_train_step(scene, optimizer, timer: StepTimer | None = None, split=None):
     """train_step(params, batch, mesh_state, gen, step, epoch) -> aux dict of
     detached scalars.  ``timer`` (optional) records the 'sampler' and 'grad'
-    phases, synchronising the device at their ends."""
+    phases, synchronising the device at their ends.  With ``split`` (a
+    ``parallel.sharding.RaySplit``) ``batch`` is this rank's slice, the
+    per-ray draws are sliced from every rank's, the gradients are averaged
+    over the ranks before Adam's step and the scalars are the ranks' mean
+    (the psnr that of the mean squared error)."""
+    trained = [p for group in optimizer.param_groups for p in group["params"]]
 
     def phase(name, start):
         if timer is not None:
@@ -138,6 +167,8 @@ def make_train_step(scene, optimizer, timer: StepTimer | None = None):
 
     def train_step(params, batch, mesh_state, gen, step: int, epoch: int) -> dict:
         B, P = batch["uv"].shape[:2]
+        if split is not None:
+            gen = RankDraws(gen, split.rank, split.world, B)
         phase("sampler", True)
         z_vals = sample_all_z(params, scene, batch, gen, step, epoch)
         phase("sampler", False)
@@ -146,12 +177,19 @@ def make_train_step(scene, optimizer, timer: StepTimer | None = None):
         optimizer.zero_grad(set_to_none=True)
         out = holdnet_forward(params, scene, batch, mesh_state, draws, step, epoch,
                               z_vals_dict=z_vals)
-        losses = compute_losses(batch, out, scene.node_ids, step)
+        losses = compute_losses(batch, out, scene.node_ids, step, split)
         losses["loss"].backward()
+        if split is not None:
+            average_gradients(trained, split)
         optimizer.step()
         phase("grad", False)
         aux = {k: v.detach() for k, v in losses.items()}
-        aux["psnr"] = psnr(out["rgb"].detach(), batch["gt_rgb"])
+        if split is None:
+            aux["psnr"] = psnr(out["rgb"].detach(), batch["gt_rgb"])
+            return aux
+        aux["mse"] = torch.mean((out["rgb"].detach() - batch["gt_rgb"]) ** 2)
+        aux = split.mean_of(aux)
+        aux["psnr"] = psnr_from_mse(aux.pop("mse"))
         return aux
 
     return train_step
@@ -212,8 +250,14 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     running meshing and then the queued one are waited for and adopted.
     ``args.fast_dev_run`` meshes at every epoch boundary, at once, at a
     quarter of the resolutions.  A meshing that fails is logged and leaves
-    the state as it was, as in the reference: it never ends training."""
+    the state as it was, as in the reference: it never ends training.
+
+    In a process group (``parallel.sharding``) every rank calls it alike
+    and trains its share of the rays; rank 0 alone writes, meshes and logs
+    (the module's docstring)."""
     device = resolve_device(device or args.get("device"))
+    split = current_split(device)
+    rank0 = split is None or split.rank == 0
     if seq is None:
         seq = SequenceData.from_build_dir(args.case, args.data_root, num_sample=args.num_sample)
     opt_model = dict(cfg["model"])
@@ -229,13 +273,18 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 
-    tracker = Tracker(args.log_root, args.get("exp_key", ""), args=args, mute=args.get("mute"))
+    exp_key = args.get("exp_key", "")
+    if split is not None and not exp_key:  # one experiment: rank 0's key
+        exp_key = split.broadcast_object(make_exp_key())
+    tracker = Tracker(args.log_root, exp_key, args=args, mute=args.get("mute"), active=rank0)
     log = tracker.logger
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
     shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_train]
     log.info(f"experiment {tracker.exp_key}: case={args.case} nodes={scene.node_ids} "
              f"frames={seq.n_frames} device={device} fused sampler={fused} "
-             f"fused shade={shade}")
+             f"fused shade={shade}"
+             + (f" ranks={split.world} ({torch.distributed.get_backend()})"
+                if split is not None else ""))
 
     start_step, opt_state, resumed = 0, None, False
     if args.get("load_ckpt"):
@@ -268,8 +317,10 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
             optimizer.load_state_dict(opt_state)
         except ValueError as e:  # another parameter set: the parameters alone
             log.warning(f"optimizer state not restored ({e}); resuming the parameters only")
+    if split is not None:  # every rank loaded the same files; rank 0's state is the run's
+        split.broadcast_tensors_(replicated_state(params, optimizer))
     timer = StepTimer()
-    train_step = make_train_step(scene, optimizer, timer)
+    train_step = make_train_step(scene, optimizer, timer, split)
     batch_size = cfg["dataset"]["train"]["batch_size"]
     steps_per_epoch = max(args.tempo_len // batch_size, 1)
     total_steps = max_steps or args.total_step
@@ -282,6 +333,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     saved_at = start_step if resumed else None
 
     def checkpoint(at_step):
+        if not rank0:
+            return
         timer.start("checkpoint")
         path = save_checkpoint(tracker.log_dir, at_step,
                                training_state(params, optimizer, at_step, opt_model))
@@ -296,6 +349,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
         try:
             if val_chunk_fn is None:
                 val_chunk_fn = make_chunk_renderer(scene)
+                if split is not None:
+                    val_chunk_fn = split_chunk_renderer(val_chunk_fn, split)
             vidx = int(val_rng.randint(seq.n_frames))
             fb = seq.full_frame_batch(vidx, downsample=int(args.get("render_downsample", 2)))
             res = render_frame(params, scene, fb, pixel_per_batch=4096, chunk_fn=val_chunk_fn)
@@ -329,6 +384,12 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
         snapshot, at_step = snap
         return run_meshing(snapshot, scene, seq, tracker.log_dir, at_step, res_scale)
 
+    def share(state):
+        """Rank 0's mesh state on every rank (one process: as it is)."""
+        if split is not None:
+            split.broadcast_tensors_([state[k] for k in sorted(state)])
+        return state
+
     batches = prefetch_batches(seq, np.random.RandomState(seed), batch_size, args.offset,
                                args.num_sample)
     t_start = time.time()
@@ -336,7 +397,10 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
         for step in range(start_step, total_steps):
             epoch = step // steps_per_epoch
             timer.start("data")
-            batch = batch_to_device(next(batches), device)
+            batch_np = next(batches)
+            if split is not None:
+                batch_np = shard_batch(batch_np, split.rank, split.world)
+            batch = batch_to_device(batch_np, device)
             timer.stop("data")
             aux = train_step(params, batch, mesh_state, gen, step, epoch)
             if step == start_step and total_steps - start_step > 1:
@@ -350,24 +414,31 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
                          f"psnr {aux['psnr']:.2f}")
 
             done = step + 1
-            if mesh_future is not None and mesh_future.done():
+            meshed = mesh_future is not None and mesh_future.done()
+            if split is not None and meshing:  # every rank adopts at rank 0's step
+                meshed = split.agree(meshed)
+            if meshed:
                 timer.start("meshing")
-                mesh_state = adopt(mesh_future.result, mesh_state)
-                mesh_future = None
-                if pending is not None:
-                    mesh_future, pending = mesher.submit(mesh_at, pending), None
+                if rank0:
+                    mesh_state = adopt(mesh_future.result, mesh_state)
+                    mesh_future = None
+                    if pending is not None:
+                        mesh_future, pending = mesher.submit(mesh_at, pending), None
+                mesh_state = share(mesh_state)
                 timer.stop("meshing")
             if done % steps_per_epoch:
                 continue
             ep = done // steps_per_epoch
             if meshing and (ep % 3 == 0 or fast):
                 timer.start("meshing")
-                snap = (meshing_snapshot(params, scene), done)
+                snap = (meshing_snapshot(params, scene), done) if rank0 else None
                 if fast:
-                    mesh_state = adopt(lambda: mesh_at(snap), mesh_state)
-                elif mesh_future is None:
+                    if rank0:
+                        mesh_state = adopt(lambda: mesh_at(snap), mesh_state)
+                    mesh_state = share(mesh_state)
+                elif rank0 and mesh_future is None:
                     mesh_future = mesher.submit(mesh_at, snap)
-                else:
+                elif rank0:
                     pending = snap
                     log.warning(f"meshing still running at epoch {ep}; queued the snapshot of "
                                 f"step {done} in place of any queued before")
@@ -382,6 +453,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
             mesh_state = adopt(mesh_future.result, mesh_state)
         if pending is not None:
             mesh_state = adopt(lambda: mesh_at(pending), mesh_state)
+        if meshing:
+            mesh_state = share(mesh_state)
     finally:
         batches.close()
         mesher.shutdown(wait=True)
@@ -394,9 +467,40 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     return params, scene, mesh_state, tracker, timer, optimizer
 
 
-def main():
-    args, cfg = parse_args()
-    run_training(args, cfg)
+def replicated_state(params, optimizer) -> list:
+    """The tensors every rank must hold alike at the start: the parameters
+    and Adam's moment estimates (its step counts live on the host and come
+    from the same checkpoint on every rank)."""
+    out = list(flatten_params(params).values())
+    for st in optimizer.state.values():
+        out += [t for t in st.values() if torch.is_tensor(t) and t.dim() > 0]
+    return out
+
+
+def train_worker(rank: int, world: int, device, args, cfg) -> None:
+    """One rank of a local run (``parallel.sharding.launch``)."""
+    run_training(args, cfg, device=device)
+
+
+def main(argv=None):
+    """Parse the flags and train: in this process, in ``--num_devices``
+    local processes, or as rank ``--process_id`` of a ``--coordinator``
+    run.  A process group made here is destroyed on exit and on error."""
+    args, cfg = parse_args(argv)
+    device = resolve_device(args.device)
+    if args.coordinator:
+        dev = local_device(args.process_id, device.type)
+        init_distributed(args.coordinator, args.num_processes, args.process_id, dev)
+        try:
+            run_training(args, cfg, device=dev)
+        finally:
+            torch.distributed.destroy_process_group()
+        return
+    n = local_process_count(int(args.num_devices), device.type)
+    if n == 1:
+        run_training(args, cfg, device=device)
+        return
+    launch(train_worker, n, rank_devices(n, device.type), (args, cfg))
 
 
 if __name__ == "__main__":

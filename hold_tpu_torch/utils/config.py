@@ -153,9 +153,13 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Cfg:
 
 def build_argparser() -> argparse.ArgumentParser:
     """Training CLI flags — surface parity with code/src/utils/parser.py:13-70
-    and the JAX package's, without its multi-host and remote-tracker flags
-    (``--num_devices``, ``--coordinator``, ``--num_processes``,
-    ``--process_id``, ``--remote_track``), which the port does not have."""
+    and every flag of the JAX package's, with its defaults; the port adds
+    ``--seed``, ``--no_fused_sampler``, ``--no_fused_train``, ``--no_remat``
+    and ``--device``.  The multi-process flags keep the JAX names with the
+    port's meaning: ``--num_devices`` local processes, one a card (0: every
+    card; with ``--device cpu``, gloo processes on the CPU), or with
+    ``--coordinator`` one process of ``--num_processes`` (rank
+    ``--process_id``, on card ``process_id`` mod the host's cards)."""
     p = argparse.ArgumentParser()
     p.add_argument("--config", type=str, default="")
     p.add_argument("--log_every", type=int, default=10)
@@ -182,8 +186,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--load_pose", type=str, default="")
     p.add_argument("--eval_every_epoch", type=int, default=6)
     p.add_argument("--tempo_len", type=int, default=2000)
+    p.add_argument("--num_devices", type=int, default=0, help="0 = all local devices")
     p.add_argument("--data_root", type=str, default="./data")
     p.add_argument("--log_root", type=str, default="./logs")
+    p.add_argument("--remote_track", type=str, default="",
+                   help="remote tracker sink: jsonl:<path> or http(s)://url "
+                        "(comet_utils streaming role; also HOLD_TPU_REMOTE)")
+    p.add_argument("--coordinator", type=str, default="",
+                   help="multi-host: coordinator address host:port "
+                        "(torch.distributed); empty = single host")
+    p.add_argument("--num_processes", type=int, default=0)
+    p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--seed", type=int, default=0)
     # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
     p.add_argument("--no_fused_sampler", action="store_true")
@@ -211,8 +224,8 @@ def parse_args(argv=None):
     and logs every step; ``run_training`` also shortens the sampler."""
     args = Cfg(vars(build_argparser().parse_args(argv)))
     cfg = load_config(args.config or None)
-    # the proposal net (sampler surrogate) is not ported yet: the port's only
-    # sampler queries the full trunk
+    # the proposal net (sampler surrogate) is not ported yet (ROADMAP Queue 1
+    # item 9): the port's only sampler queries the full trunk
     cfg["model"]["proposal"]["enabled"] = False
 
     build_dir = os.path.join(args.data_root, args.case, "build")

@@ -1,8 +1,10 @@
 """Homogeneous and rigid transform math (PyTorch counterpart of
-hold_tpu/utils/transforms.py, the parts the training path uses)."""
+hold_tpu/utils/transforms.py: the parts the training path uses, projection,
+Kabsch alignment and the MANO root's OpenGL <-> OpenCV flip)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -47,3 +49,38 @@ def inverse_affine4(T: torch.Tensor) -> torch.Tensor:
     Ainv = inverse_mat3(T[..., :3, :3])
     t = T[..., :3, 3]
     return rt_to_mat4(Ainv, -torch.einsum("...ij,...j->...i", Ainv, t))
+
+
+def project2d(K: torch.Tensor, pts_cam: torch.Tensor) -> torch.Tensor:
+    """Perspective projection. K (..., 3, 3), pts (..., N, 3) -> (..., N, 2)."""
+    uvw = torch.einsum("...ij,...nj->...ni", K, pts_cam)
+    return uvw[..., :2] / torch.clamp(uvw[..., 2:3], min=1e-8)
+
+
+def solve_rigid_tf_np(src: np.ndarray, dst: np.ndarray):
+    """Kabsch: R, t minimising ||R src + t - dst|| (numpy, host-side)."""
+    src = np.asarray(src, dtype=np.float64)
+    dst = np.asarray(dst, dtype=np.float64)
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    H = (src - mu_s).T @ (dst - mu_d)
+    U, _, Vt = np.linalg.svd(H)
+    S = np.eye(3)
+    S[2, 2] = np.sign(np.linalg.det(Vt.T @ U.T))
+    R = Vt.T @ S @ U.T
+    t = mu_d - R @ mu_s
+    return R.astype(np.float32), t.astype(np.float32)
+
+
+def cv2gl_mano(global_orient_aa: np.ndarray, transl: np.ndarray, pivot: np.ndarray):
+    """Flip a MANO root pose between the OpenCV and OpenGL camera conventions
+    (y and z negated about ``pivot``, the rest root joint), host-side numpy.
+    Its own inverse.  Returns (axis-angle (F, 3), translation (F, 3)),
+    float32."""
+    import cv2
+
+    flip = np.diag([1.0, -1.0, -1.0])
+    R = np.stack([cv2.Rodrigues(a)[0] for a in np.asarray(global_orient_aa)])
+    R_new = flip[None] @ R
+    aa_new = np.stack([cv2.Rodrigues(r)[0][:, 0] for r in R_new])
+    t_new = (flip[None] @ (np.asarray(transl) + pivot)[..., None])[..., 0] - pivot @ flip.T
+    return aa_new.astype(np.float32), t_new.astype(np.float32)

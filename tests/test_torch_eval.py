@@ -10,8 +10,10 @@
   dir with two misc sidecars (the one at or before the checkpoint's step is
   read), within 1e-5; ``run_evaluation`` on both within 1e-4, with the
   first frame's ICP and with ``--icp_every_frame``'s;
-- the CLIs: ``evaluate`` writes the JAX format, ``--gt ho3d`` is refused;
-  ``summarize_metrics`` prints the JAX package's table.
+- the CLIs: ``evaluate`` writes the JAX format, and with ``--gt ho3d`` (an
+  HO3D v3 fixture processed by the port, tests/test_torch_gt.py) scores the
+  experiment as the JAX ``run_evaluation`` does against the JAX ``gt_ho3d``
+  (within 1e-4); ``summarize_metrics`` prints the JAX package's table.
 
 The experiment's scene is the toy model (widths 64) of
 tests/test_torch_train_step.py: the JAX ``load_data``, which rebuilds its
@@ -267,7 +269,7 @@ def test_icp_every_frame_matches_jax(eval_inputs):
         assert np.isfinite(got[k]), k
 
 
-def test_evaluate_cli_writes_the_jax_format(experiment):
+def test_evaluate_cli_writes_the_jax_format(experiment, eval_inputs, tmp_path):
     argv = ["--exp", experiment["exp"], "--case", "noisy", "--data_root",
             experiment["data_root"], "--icp_iters", "1", "--device", "cpu"]
     rec = teval.main(argv)
@@ -278,8 +280,17 @@ def test_evaluate_cli_writes_the_jax_format(experiment):
                         allow_pickle=True).item()
     assert set(per_frame) == set(rec["per_frame"])
     assert rec["servers_s"] > 0 and rec["metrics_s"] > 0
-    with pytest.raises(NotImplementedError, match="gt_ho3d"):
-        teval.main(argv[:-2] + ["--gt", "ho3d", "--device", "cpu"])
+    from hold_tpu.eval import gt_ho3d as jgt_ho3d
+    from test_torch_gt import write_ho3d_gt
+
+    ho3d_root = write_ho3d_gt(str(tmp_path), "noisy", 3)  # frame 2 unannotated
+    rec = teval.main(argv + ["--gt", "ho3d", "--ho3d_root", ho3d_root])
+    jgt = jgt_ho3d.load_data("noisy", experiment["data_root"], ho3d_root)
+    want, _ = jeval.run_evaluation(eval_inputs["jpred"], jgt, icp_iters=1)
+    assert set(rec["mean"]) == set(want) | {"timestamp", "seq_name"}
+    for k, v in want.items():
+        np.testing.assert_allclose(rec["mean"][k], v, rtol=1e-4, atol=1e-4, err_msg=k)
+        assert np.isfinite(rec["mean"][k]), k
 
 
 def test_summarize_metrics_prints_the_jax_table(tmp_path, capsys):

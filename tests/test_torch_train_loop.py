@@ -26,10 +26,9 @@ from hold_tpu_torch.utils.checkpoint import latest_checkpoint, read_checkpoint
 from hold_tpu_torch.utils.config import Cfg
 from hold_tpu_torch.utils.convert import flatten_params
 
-# the JAX package's flags that the port leaves out: multi-host and the remote
-# tracker
-NOT_PORTED = {"--num_devices", "--coordinator", "--num_processes", "--process_id",
-              "--remote_track"}
+# the JAX package's flags that the port leaves out: none since the multi-process
+# and remote-tracker flags came
+NOT_PORTED: set = set()
 
 
 @pytest.fixture(scope="module", autouse=True)
