@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (hold_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases 3,4,11]
 
-Phases, in order; any failure ends the run with a non-zero exit:
+Phases, in order; any failure ends the run with a non-zero exit.  Every
+run trains the defaults, the proposal net on with its 1000-step warmup
+(phase 11 cuts the warmup to reach proposal mode):
 
 1. Environment: versions, the card's name and power limit, TF32 off.
 2. Build: compile hold_tpu_torch/csrc/*.cu for sm_90a (nvcc, first use),
@@ -35,7 +37,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    2 rounds): every fused query call of one ``-f`` sampler stage against its
    plain version and the layer-by-layer query; and row 7, forward and
    backward part by part, at what one ``-f`` grad stage hands it (10 frames
-   x 208 points, both nodes), under the limits derived at that N.
+   x 208 points, both nodes), under the limits derived at that N.  Rows
+   5-6 and 12-13 also with the relu trunk (``relu=True``) against the plain
+   relu versions, the softplus plain version a control that must fail;
+   rows 1 and 5 on every 4th MANO vertex in that set's tile order.
 4. Agreement on a small batch: the sdf the card's sampler read (every call
    of the fused query kernels, at its own inputs) against the plain
    versions on the CPU at the same inputs, and the plain versions on the
@@ -50,7 +55,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and, report only, on the CPU with float64 products; then 256 hand and
    object rays of a frame,
    the card's z tables given to both sides, composited maps on the card
-   against the CPU.
+   against the CPU; then the sampler in proposal mode: row 1 and no row 5-6
+   launched, the sdf the card's proposal read against the CPU's at the same
+   inputs, the z samples moved under ``Z_MOVED_F64``'s rule with the
+   card's proposal unrounded (float32) as the control beyond it.
 5. The training slice: ``hold_tpu_torch.train.run_training`` on the
    synthetic sequence (12 frames, 240x320) at full width, 10 frames x 128
    rays = 1280 rays per step: 6 steps with the defaults (fused sampler,
@@ -124,7 +132,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    fail them (ranks that average their own masked means, ranks that skip
    the all-reduce); the ranks' parameters equal; each rank's launches.
    Then one step in an NCCL group of one process, and phase 5's fused run's
-   metrics read back from its ``jsonl:`` remote sink.
+   metrics read back from its ``jsonl:`` remote sink.  The seed's step is
+   past the proposal's warmup, which phase 10 moves past its runs, so that
+   it drives the fused sampler as before.
+11. The proposal net and the sampler's knobs at full width
+   (``PROPOSAL_RUNS``): 4 steps at 1,280 rays and 3 at 5,120 (10 frames x
+   512), proposal mode from step 2; 1 step at 5,120 in proposal mode from
+   step 0 (the undistilled surrogate); 3 steps at 1,280 with
+   ``--node_bounds --sampler_relu --sampler_knn_stride 4`` (the relu trunk
+   and the strided search, then proposal mode on the strided set).  Each
+   step: every loss term, parameter and z table finite, z sorted,
+   ``loss/proposal`` > 0, row 1 in proposal mode and rows 5-6 otherwise;
+   per mode the stages' walls, one profiled step's device time and
+   launches, and the peak memory.
 
 Phase 5 also times the sampler stage with its exponentials in float64 (as
 it runs) and in float32 (as before their repair): wall, launches, device
@@ -133,15 +153,19 @@ time.
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing the kernels (errors, kernel and plain
 times, the bound from this run's shapes, launches per path, "refine" and
-"visualize" among them), and
+"visualize" among them; the relu forms under their own counters, the
+stride-4 forms counted as their kernel's launches in the "knobs" run), and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
 directory that does not hold the hold_tpu_torch package, it exits non-zero
-and prints no result.
+and prints no result.  ``--phases`` runs phases 1-2 and then only those
+listed of 3, 4 and 11 (5-10 depend on each other): a partial run for
+development, which prints no result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -176,12 +200,23 @@ SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point
 # defaults in one process ("dp_one", validating), in each of two ranks
 # ("dp_rank0", "dp_rank1", validating) and in an NCCL group of one process
 # ("dp_nccl").
+# Phase 11 trains four runs at full width with the proposal's warmup cut
+# (PROPOSAL_RUNS): "prop_1280" and "prop_5120" (the trunk sampler, then
+# proposal mode), "prop_5120_step0" (proposal mode from step 0) and "knobs"
+# (--node_bounds --sampler_relu --sampler_knn_stride 4: the fused query's
+# relu trunk and strided search, then proposal mode on the strided set).
 DP_PATHS = ("dp_one", "dp_rank0", "dp_rank1", "dp_nccl")
-GRAD = ("fused", "layer", "chunked", "resume", "fast", "two_hands", "built") + DP_PATHS
-FUSED_SAMPLER = ("fused", "chunked", "render", "resume", "fast", "two_hands", "built") + DP_PATHS
-FUSED_SHADE = ("fused", "layer", "resume", "fast", "two_hands", "built") + DP_PATHS
+PROPOSAL_PATHS = ("prop_1280", "prop_5120", "prop_5120_step0", "knobs")
+GRAD = ("fused", "layer", "chunked", "resume", "fast", "two_hands", "built") + DP_PATHS \
+    + PROPOSAL_PATHS
+FUSED_SAMPLER = ("fused", "chunked", "render", "resume", "fast", "two_hands", "built") + DP_PATHS \
+    + ("prop_1280", "prop_5120")
+FUSED_SHADE = ("fused", "layer", "resume", "fast", "two_hands", "built") + DP_PATHS \
+    + PROPOSAL_PATHS
+# the sampler's warp ahead of the proposal net or the layer-by-layer trunk
+SAMPLER_WARP = ("layer",) + PROPOSAL_PATHS
 KERNELS = {
-    "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", ("layer",)),
+    "knn_inverse_warp": ("knn", "hold_tpu/ops/knn.py:416", SAMPLER_WARP),
     "knn_inverse_warp_diff.fwd": ("knn", "hold_tpu/ops/knn.py:547", GRAD),
     "knn_inverse_warp_diff.bwd": ("knn", "hold_tpu/ops/knn.py:581", GRAD),
     "knn_jacobian_inverse.fwd": ("knn", "hold_tpu/ops/knn.py:737", GRAD),
@@ -199,7 +234,18 @@ KERNELS = {
                             ("render", "fused", "resume", "dp_one", "dp_rank0", "dp_rank1")),
     "knn_blend_weights": ("knn", "hold_tpu/ops/knn.py:144", ()),
     "knn_blend_weights_t": ("knn", "hold_tpu/ops/knn.py:254", ()),
+    # the relu trunk (query_trunk_kernel<true>): its own launch counters
+    "fused_hand_sampler_sdf_z.relu": ("fq", "hold_tpu/ops/fused_query.py:484", ("knobs",)),
+    "fused_object_sampler_sdf_z.relu": ("fq", "hold_tpu/ops/fused_query.py:520", ("knobs",)),
+    "fused_hand_sampler_sdf.relu": ("fq", "hold_tpu/ops/fused_query.py:389", ()),
+    "fused_object_sampler_sdf.relu": ("fq", "hold_tpu/ops/fused_query.py:419", ()),
 }
+# forms of a kernel that share its counter (the same instance on another
+# vertex set): the form -> the counter whose launches in the "knobs" run are
+# all of that form (its sampler searches every 4th MANO vertex)
+STRIDE = 4
+FORMS = {"knn_inverse_warp.stride4": ("knn_inverse_warp", "knobs"),
+         "fused_hand_sampler_sdf_z.stride4": ("fused_hand_sampler_sdf_z.relu", "knobs")}
 # the card's peak rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
 # bf16 tensor cores, f32 outside them, device memory
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
@@ -296,8 +342,13 @@ RENDER_MAP_TOL = {"rgb": 3e-2, "mask_prob": 3e-2, "normal": 8e-2, "depth": 3e-2}
 # 3136; with the exponentials in float32 (the control) 46, 51 and 126.
 # The limit of each check is that float64 count plus three times its square
 # root (the count's Poisson spread), over the table's samples: 1.234 %,
-# 0.793 % and 1.762 %; each control lies beyond its own.
-Z_MOVED_F64 = {"one hand": 24, "fast": 8, "two hands": 37}
+# 0.793 % and 1.762 %; each control lies beyond its own.  In proposal mode
+# (1 pair of frames x 16 rays) the worst node (the hand) moved 115 of 3136
+# samples (3.667 %; the object 2.232 %), with float32 exponentials 116: the
+# bf16 surrogate's roundings, not the exponentials, move these samples, so
+# its control is the card's surrogate on its float32 tree, 212 (6.760 %),
+# beyond the limit of 4.693 %.
+Z_MOVED_F64 = {"one hand": 24, "fast": 8, "two hands": 37, "proposal": 115}
 
 
 def z_moved_limit(case: str, samples: int) -> float:
@@ -542,6 +593,14 @@ def check_bf16_query(name: str, got, ref, scaled_mean: bool = False) -> float:
     return err
 
 
+def bf16_query_reading(got, ref) -> tuple:
+    """(worst |d| / (FQ_MAX max(1, |ref|)), mean |d|, within both bounds)."""
+    d = (got.float() - ref.float()).abs()
+    worst = float((d / (FQ_MAX * ref.float().abs().clamp(min=1.0))).max())
+    mean = float(d.mean())
+    return worst, mean, worst <= 1.0 and mean <= FQ_MEAN
+
+
 def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
     """max|got - ref| <= atol + rtol * max|ref|, else raise."""
     err = max_err(got, ref)
@@ -557,8 +616,7 @@ def check_close(name: str, got, ref, rtol: float, atol: float) -> float:
 def slice_config():
     from hold_tpu_torch.utils.config import Cfg, load_config
 
-    cfg = load_config()
-    cfg["model"]["proposal"]["enabled"] = False  # not ported: exact sampler
+    cfg = load_config()  # the proposal net on, its warmup 1000 steps
     args = Cfg({
         "case": "synthetic", "lr": 1e-4, "num_sample": RAYS_PER_FRAME, "tempo_len": 2000,
         "offset": 1, "log_every": 1, "no_meshing": True, "no_vis": True, "mute": True,
@@ -809,19 +867,24 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     wbytes = fq.W_TOTAL * 2.0 + fq.F_TOTAL * 4.0
     act = 8 * 256 * 8.0  # softplus100 a hidden unit: f32 operations
     hand_f32 = knn_needed(1, V, J) + 24 * J + 45  # a point of the hand's warp
+    # each kernel and plain call takes relu= (the relu trunk's form below)
     cases = (
-        ("fused_hand_sampler_sdf_z", lambda: fq.fused_hand_sampler_sdf_z(*rays, *hand, **hand_kw),
-         lambda: fq.hand_query_plain(pts_b, *hand).reshape(z_t.shape), f"B={B} P={P} S={S}",
-         act + hand_f32, 8.0, wbytes + fbytes + B * P * 24),
-        ("fused_object_sampler_sdf_z", lambda: fq.fused_object_sampler_sdf_z(*rays, *obj),
-         lambda: fq.object_query_plain(pts_b, *obj).reshape(z_t.shape), f"B={B} P={P} S={S}",
-         act + 24, 8.0, wbytes + B * P * 24),
-        ("fused_hand_sampler_sdf", lambda: fq.fused_hand_sampler_sdf(pts_s, *hand, **hand_kw),
-         lambda: fq.hand_query_plain(pts_s, *hand), f"B={B} N={pts_s.shape[1]}",
-         act + hand_f32, 16.0, wbytes + fbytes),
-        ("fused_object_sampler_sdf", lambda: fq.fused_object_sampler_sdf(pts_s, *obj),
-         lambda: fq.object_query_plain(pts_s, *obj), f"B={B} N={pts_s.shape[1]}",
-         act + 24, 16.0, wbytes),
+        ("fused_hand_sampler_sdf_z",
+         lambda relu=False: fq.fused_hand_sampler_sdf_z(*rays, *hand, relu=relu, **hand_kw),
+         lambda relu=False: fq.hand_query_plain(pts_b, *hand, relu=relu).reshape(z_t.shape),
+         f"B={B} P={P} S={S}", act + hand_f32, 8.0, wbytes + fbytes + B * P * 24),
+        ("fused_object_sampler_sdf_z",
+         lambda relu=False: fq.fused_object_sampler_sdf_z(*rays, *obj, relu=relu),
+         lambda relu=False: fq.object_query_plain(pts_b, *obj, relu=relu).reshape(z_t.shape),
+         f"B={B} P={P} S={S}", act + 24, 8.0, wbytes + B * P * 24),
+        ("fused_hand_sampler_sdf",
+         lambda relu=False: fq.fused_hand_sampler_sdf(pts_s, *hand, relu=relu, **hand_kw),
+         lambda relu=False: fq.hand_query_plain(pts_s, *hand, relu=relu),
+         f"B={B} N={pts_s.shape[1]}", act + hand_f32, 16.0, wbytes + fbytes),
+        ("fused_object_sampler_sdf",
+         lambda relu=False: fq.fused_object_sampler_sdf(pts_s, *obj, relu=relu),
+         lambda relu=False: fq.object_query_plain(pts_s, *obj, relu=relu),
+         f"B={B} N={pts_s.shape[1]}", act + 24, 16.0, wbytes),
     )
     for name, kern, plain, shape, f32_pp, bytes_pp, bytes_once in cases:
         got, ref = kern(), plain()
@@ -865,6 +928,85 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
             raise AssertionError(f"{name} {shape}: shape {tuple(got.shape)} or non-finite values")
         results[name].setdefault("ragged", {})[shape] = check_bf16_query(f"{name} {shape}", got,
                                                                          ref)
+
+    # 5, 6, 12, 13 with the relu trunk (query_trunk_kernel<true>) at the same
+    # shapes, against the plain relu versions under the same bounds; the
+    # control, the relu kernel against the softplus plain version, must
+    # fail them.  A relu costs two operations (the bias and the max) where
+    # a softplus100 costs eight; the layer into the head keeps its softplus.
+    act_relu = 7 * 256 * 2.0 + 256 * 8.0
+    for name, kern, plain, shape, f32_pp, bytes_pp, bytes_once in cases:
+        kern_r, plain_r = functools.partial(kern, relu=True), functools.partial(plain, relu=True)
+        got, ref, soft = kern_r(), plain_r(), plain()
+        torch.cuda.synchronize()
+        if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}.relu: shape {tuple(got.shape)} or non-finite values")
+        err = check_bf16_query(f"{name}.relu", got, ref)
+        beyond = bf16_query_reading(got, soft)
+        print(f"    control, the relu kernel against the softplus plain version: worst "
+              f"{beyond[0]:.3f} of the bound, mean {beyond[1]:.3e} "
+              f"{'fails the bounds: ok' if not beyond[2] else 'within: FAIL'}", flush=True)
+        if beyond[2]:
+            raise AssertionError(f"{name}.relu: the softplus control passes the bounds")
+        ms = cuda_ms(torch, kern_r)
+        n = got.numel()
+        record(f"{name}.relu", err, ms, cuda_ms(torch, plain_r), shape,
+               bound(2.0 * fq.TRUNK_MACS * n, (f32_pp - act + act_relu) * n,
+                     bytes_pp * n + bytes_once),
+               mean_abs_err=float((got - ref).abs().mean()),
+               trunk_tflop_s=fq.TRUNK_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12,
+               softplus_ms=results[name]["ms"])
+
+    # 1 and 5 on every STRIDE-th MANO vertex (--sampler_knn_stride), in the
+    # strided set's own tile order as build_scene makes it; the full set's
+    # order for the strided set is refused
+    s_verts, s_skin = verts[:, ::STRIDE].contiguous(), skin[:, ::STRIDE].contiguous()
+    s_order = knn.tile_order(server.verts_c[0, ::STRIDE])
+    Vs = s_verts.shape[1]
+    try:
+        knn.knn_inverse_warp(pts_s, s_verts, s_skin, tfs, order=order)
+    except ValueError as e:
+        print(f"  the full set's order for the strided set: refused ({e})", flush=True)
+    else:
+        raise AssertionError("knn_inverse_warp took the full set's order for the strided set")
+    got_x, got_o = knn.knn_inverse_warp(pts_s, s_verts, s_skin, tfs, order=s_order)
+    ref_x, ref_o = knn.inverse_warp_plain(pts_s, s_verts, s_skin, tfs)
+    err = check_close(f"knn_inverse_warp x_c, V={Vs}", got_x, ref_x, 1e-5, 1e-5)
+    if not torch.equal(got_o, ref_o):
+        raise AssertionError("knn_inverse_warp (strided): outlier mask differs")
+    sbytes = frame_bytes(B, Vs, J)
+    cnt = search_counts(torch, f"knn_inverse_warp V={Vs}",
+                        lambda: knn.knn_inverse_warp(pts_s, s_verts, s_skin, tfs, order=s_order))
+    record("knn_inverse_warp.stride4", err,
+           cuda_ms(torch, lambda: knn.knn_inverse_warp(pts_s, s_verts, s_skin, tfs,
+                                                       order=s_order)),
+           cuda_ms(torch, lambda: knn.inverse_warp_plain(pts_s, s_verts, s_skin, tfs)),
+           f"B={B} P={pts_s.shape[1]} V={Vs}",
+           bound(0, knn_needed(n_s, Vs, J) + n_s * (24 * J + 45), n_s * 25 + sbytes),
+           search=cnt, library_note=no_library,
+           brute_force_bound_ms=bound(0, knn_cost(n_s, Vs, J) + n_s * (24 * J + 45),
+                                      n_s * 25 + sbytes)["bound_ms"])
+    hand_s = (s_verts, s_skin, tfs, windows["right"], packs["right"])
+
+    def strided_query():
+        return fq.fused_hand_sampler_sdf_z(*rays, *hand_s, order=s_order)
+
+    def strided_plain():
+        return fq.hand_query_plain(pts_b, *hand_s).reshape(z_t.shape)
+
+    got, ref = strided_query(), strided_plain()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError("fused_hand_sampler_sdf_z (strided): shape or non-finite values")
+    err = check_bf16_query(f"fused_hand_sampler_sdf_z V={Vs}", got, ref)
+    ms = cuda_ms(torch, strided_query)
+    n = got.numel()
+    record("fused_hand_sampler_sdf_z.stride4", err, ms, cuda_ms(torch, strided_plain),
+           f"B={B} P={P} S={S} V={Vs}",
+           bound(2.0 * fq.TRUNK_MACS * n, (act + knn_needed(1, Vs, J) + 24 * J + 45) * n,
+                 8.0 * n + wbytes + sbytes + B * P * 24),
+           mean_abs_err=float((got - ref).abs().mean()),
+           trunk_tflop_s=fq.TRUNK_FLOPS_PER_POINT * n / (ms * 1e-3) / 1e12)
 
     # 10, 11: the KNN blend kernels at the sampler warp's shape
     for name, fn in (("knn_blend_weights", knn.knn_blend_weights),
@@ -2957,6 +3099,9 @@ def data_parallel(torch, data_root: str, args, cfg, dev) -> dict:
     from hold_tpu_torch.utils.checkpoint import read_checkpoint, save_checkpoint
 
     t0 = time.perf_counter()
+    # the seed is at step 9000, past the proposal's warmup: phase 10 keeps
+    # the trunk's (fused) sampler, the proposal's warmup moved past its runs
+    cfg = with_warmup(cfg, DP_START + DP_STEPS + 1)
     log_root = args["log_root"]
     seed = read_checkpoint(os.path.join(log_root, args["exp_key"], "checkpoints",
                                         f"step_{REFINE_STEP:09d}.pt"))
@@ -3056,8 +3201,321 @@ def data_parallel(torch, data_root: str, args, cfg, dev) -> dict:
     return {"dp_one": one_launches, "dp_rank0": ranks[0]["split"]["launches"],
             "dp_rank1": ranks[1]["split"]["launches"], "dp_nccl": nccl_launches}
 
+# phase 11: (path, rays a frame, steps, model.proposal.warmup, training CLI
+# flags).  The proposal's warmup is cut from 1000 so that proposal mode
+# starts within a few steps; "prop_5120_step0" samples through the
+# undistilled proposal from step 0, as the JAX benchmark did where the JAX
+# package read NaN at 5,120 rays.
+PROPOSAL_RUNS = (
+    ("prop_1280", 128, 4, 2, ()),
+    ("prop_5120", 512, 3, 2, ()),
+    ("prop_5120_step0", 512, 1, 0, ()),
+    ("knobs", 128, 3, 2, ("--node_bounds", "--sampler_relu", "--sampler_knn_stride",
+                          str(STRIDE))),
+)
+# the fused query's counters of each sampler: the relu trunk's with
+# --sampler_relu
+TRUNK_QUERIES = ("fused_hand_sampler_sdf_z", "fused_object_sampler_sdf_z")
 
-def main() -> int:
+
+def with_warmup(cfg, warmup: int):
+    """``cfg`` with ``model.proposal.warmup`` set."""
+    import copy
+
+    out = copy.deepcopy(dict(cfg))
+    out["model"]["proposal"] = dict(out["model"]["proposal"], warmup=warmup)
+    return out
+
+
+def tensors_finite(torch, tree) -> list:
+    """The paths of the non-finite tensors of a flat dict."""
+    return [k for k, t in tree.items() if not bool(torch.isfinite(t.detach()).all())]
+
+
+def stage_profile(torch, fn) -> tuple:
+    """(device ms, launches) of one call of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, n, _ = device_split(torch, prof)
+    return total, n
+
+
+def proposal_run(torch, seq, args, cfg, dev, path: str, rays: int, steps: int, warmup: int,
+                 flags: tuple) -> dict:
+    """Phase 11, one run: ``make_train_step`` (what ``run_training`` calls a
+    step) on the scene ``run_training`` builds from the training CLI's
+    ``flags``, ``steps`` steps of 10 frames x ``rays`` rays from step 0,
+    proposal mode from ``warmup``.  Each step, from counters at 0: every loss
+    term, every parameter and every z table finite, z non-decreasing along
+    each ray, ``loss/proposal`` > 0; in proposal mode row 1 launched for
+    each hand and none of rows 5-6, otherwise rows 5-6 (their relu form
+    with --sampler_relu) and no row 1.  Nothing is caught: a non-finite
+    value ends the run.  Returns the run's launches, and per mode the
+    stages' mean walls, one profiled step's device time and launches, and
+    the peak memory."""
+    import numpy as np
+    from unittest import mock
+
+    from hold_tpu_torch import train
+    from hold_tpu_torch.models.holdnet import (
+        build_scene, empty_object_mesh_state, init_scene_params, sample_all_z,
+    )
+    from hold_tpu_torch.utils.config import build_argparser, sampler_flags
+    from hold_tpu_torch.utils.convert import flatten_params
+    from hold_tpu_torch.utils.logger import StepTimer
+
+    knobs = sampler_flags(vars(build_argparser().parse_args(["--case", "synthetic", *flags])))
+    opt_model = dict(with_warmup(cfg, warmup)["model"])
+    opt_model["scene_bounding_sphere"] = seq.scene_bounding_sphere
+    scene = build_scene(opt_model, dict(args), seq.scene_data(), dev, **knobs)
+    if train.proposal_schedule(scene) != warmup:
+        raise AssertionError(f"{path}: the scene's proposal starts at "
+                             f"{train.proposal_schedule(scene)}, not {warmup}")
+    params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
+    opt = train.optimizer_for(args, params, float(opt_model["proposal"]["lr"]))
+    timer = StepTimer()
+    step_fn = train.make_train_step(scene, opt, timer)
+    mesh_state = empty_object_mesh_state(dev)
+    rng = np.random.RandomState(11)
+    gen = torch.Generator(dev).manual_seed(11)
+    seen = []
+
+    def recording(*a, **k):
+        z = sample_all_z(*a, **k)
+        seen.append((k.get("proposal_mode", False), z))
+        return z
+
+    relu = knobs["sampler_relu"]
+    rows56 = tuple(n + (".relu" if relu else "") for n in TRUNK_QUERIES)
+    hands = sum(nid != "object" for nid in scene.node_ids)
+    total = {}
+    modes = {False: {"sampler": [], "grad": [], "peak": 0}, True: {"sampler": [], "grad": [],
+                                                                    "peak": 0}}
+    print(f"  -- {path}: {steps} steps of {BATCH_SIZE * 2} frames x {rays} rays, proposal "
+          f"mode from step {warmup}, flags {' '.join(flags) or '(none)'}", flush=True)
+    last_batch = None
+    for step in range(steps):
+        batch = train.batch_to_device(seq.sample_tempo_batch(rng, BATCH_SIZE, 1, rays), dev)
+        last_batch = batch
+        reset_kernel_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen.clear()
+        before = dict(timer.totals)
+        with mock.patch.object(train, "sample_all_z", recording):
+            aux = step_fn(params, batch, mesh_state, gen, step, 0)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        mode, z = seen[0]
+        rec = modes[mode]
+        for ph in ("sampler", "grad"):
+            rec[ph].append(timer.totals[ph] - before.get(ph, 0.0))
+        rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
+        bad = [k for k, v in aux.items() if not bool(torch.isfinite(v))]
+        bad += tensors_finite(torch, flatten_params(params))
+        bad += [f"z {nid}" for nid in tensors_finite(torch, z)]
+        unsorted = [nid for nid, t in z.items() if bool((torch.diff(t, dim=1) < 0).any())]
+        want_warp = hands if mode else 0
+        wrong = []
+        if launches["knn_inverse_warp"] != want_warp * scene.sampler_cfg.max_total_iters:
+            wrong.append(f"knn_inverse_warp {launches['knn_inverse_warp']}")
+        for k in rows56:
+            if (launches[k] > 0) == mode:
+                wrong.append(f"{k} {launches[k]}")
+        off = [k for k in TRUNK_QUERIES + tuple(n + ".relu" for n in TRUNK_QUERIES)
+               if k not in rows56 and launches[k]]
+        print(f"  step {step} ({'proposal' if mode else 'trunk'} sampler): loss "
+              f"{float(aux['loss']):.5f} proposal {float(aux['loss/proposal']):.5f} rgb "
+              f"{float(aux['loss/rgb']):.5f}; sampler {rec['sampler'][-1] * 1e3:.3f} ms, grad "
+              f"{rec['grad'][-1] * 1e3:.3f} ms; z in [{min(float(t.min()) for t in z.values()):.4f}"
+              f", {max(float(t.max()) for t in z.values()):.4f}]; row 1 "
+              f"{launches['knn_inverse_warp']}, rows 5-6 {[launches[k] for k in rows56]}",
+              flush=True)
+        if bad or unsorted or wrong or off or not float(aux["loss/proposal"]) > 0:
+            raise AssertionError(f"{path} step {step}: non-finite {bad[:8]}, unsorted z "
+                                 f"{unsorted}, launches {wrong + off}, loss/proposal "
+                                 f"{float(aux['loss/proposal'])}")
+    out = {"launches": total, "modes": {}}
+    for mode, rec in modes.items():
+        if not rec["sampler"]:
+            continue
+        # one more sampler stage and grad stage of this mode, profiled
+        z = sample_all_z(params, scene, last_batch, gen, steps, 0, proposal_mode=mode)
+        s_dev = stage_profile(torch, lambda: sample_all_z(params, scene, last_batch, gen, steps,
+                                                          0, proposal_mode=mode))
+        B, P = last_batch["uv"].shape[:2]
+
+        def grad():
+            from hold_tpu_torch.models.holdnet import holdnet_forward, sample_step_draws
+            from hold_tpu_torch.models.losses import compute_losses
+
+            draws = sample_step_draws(scene, B, P, gen)
+            opt.zero_grad(set_to_none=True)
+            o = holdnet_forward(params, scene, last_batch, mesh_state, draws, steps, 0,
+                                z_vals_dict=z)
+            compute_losses(last_batch, o, scene.node_ids, steps)["loss"].backward()
+            opt.step()
+
+        g_dev = stage_profile(torch, grad)
+        r = {"sampler_ms": 1e3 * float(np.mean(rec["sampler"])),
+             "grad_ms": 1e3 * float(np.mean(rec["grad"])),
+             "sampler_device_ms": s_dev[0], "sampler_launches": s_dev[1],
+             "grad_device_ms": g_dev[0], "grad_launches": g_dev[1],
+             "peak_gib": rec["peak"] / 2**30, "steps": len(rec["sampler"])}
+        out["modes"]["proposal" if mode else "trunk"] = r
+        print(f"  {path}, {'proposal' if mode else 'trunk'} sampler ({r['steps']} steps): "
+              f"sampler_ms {r['sampler_ms']:.3f} (device {r['sampler_device_ms']:.3f} ms in "
+              f"{r['sampler_launches']} launches), grad_ms {r['grad_ms']:.3f} (device "
+              f"{r['grad_device_ms']:.3f} ms in {r['grad_launches']} launches), peak "
+              f"{r['peak_gib']:.3f} GiB", flush=True)
+    bad = path_check(path, total)
+    if bad:
+        raise AssertionError(bad[0])
+    return out
+
+
+def proposal_and_knobs(torch, seq, args, cfg, dev) -> dict:
+    """Phase 11: PROPOSAL_RUNS at full width (the JAX DEFAULT_CONFIG); the
+    launches of each, by path."""
+    t0 = time.perf_counter()
+    launches, summary = {}, {}
+    for path, rays, steps, warmup, flags in PROPOSAL_RUNS:
+        res = proposal_run(torch, seq, args, cfg, dev, path, rays, steps, warmup, flags)
+        launches[path], summary[path] = res["launches"], res["modes"]
+    print(f"  phase 11 {time.perf_counter() - t0:.1f} s: {json.dumps(summary)}", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_proposal(calls: list):
+    """While open, every call of the proposal net from the nodes' samplers
+    is appended to ``calls`` as (args, kwargs, output)."""
+    from hold_tpu_torch.models import nodes
+
+    real = nodes.apply_proposal_net
+
+    def call(*a, **k):
+        out = real(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    nodes.apply_proposal_net = call
+    try:
+        yield
+    finally:
+        nodes.apply_proposal_net = real
+
+
+@contextlib.contextmanager
+def unrounded_proposal():
+    """The samplers' proposal net on its float32 tree, not the bf16 one
+    (phase 4's control)."""
+    from hold_tpu_torch.models import nodes
+
+    real = nodes.cast_tree
+    nodes.cast_tree = lambda tree, dtype: tree
+    try:
+        yield
+    finally:
+        nodes.cast_tree = real
+
+
+def proposal_agreement(torch, seq, args, cfg, dev) -> None:
+    """Phase 4, proposal mode: the sampler stage on 1 pair of frames x 16
+    rays with the proposal nets in place of the trunk, card against CPU at
+    the same parameters: every z table finite and sorted; row 1 launched
+    for the hand on the card, none of rows 5-6; the sdf that the card's
+    proposal read, every call at its own inputs, against the CPU's at the
+    same inputs under the fused query's bounds; the z samples moved beyond
+    0.1 x the median spacing held under the limit of ``Z_MOVED_F64``'s rule
+    ("proposal"), and the card's proposal on its float32 tree (its bf16
+    roundings left out: the control) beyond it."""
+    import numpy as np
+
+    from hold_tpu_torch.models.holdnet import build_scene, init_scene_params, sample_all_z
+    from hold_tpu_torch.models.mlp import apply_proposal_net
+    from hold_tpu_torch.train import batch_to_device
+    from hold_tpu_torch.utils.convert import leaf_params
+
+    step, epoch = 300, 25
+    opt_model = dict(cfg["model"])
+    batch_np = seq.sample_tempo_batch(np.random.RandomState(1), 1, 1, 16)
+    cpu = torch.device("cpu")
+    scenes = {d.type: build_scene(opt_model, dict(args), seq.scene_data(), d) for d in (dev, cpu)}
+    if any(p.proposal is None for p in scenes["cpu"].plans.values()):
+        raise AssertionError("the slice's scene has no proposal net")
+    params0 = init_scene_params(torch.Generator().manual_seed(3), scenes["cpu"], seq.scene_data())
+
+    def run(device):
+        return sample_all_z(leaf_params(params0, device), scenes[device.type],
+                            batch_to_device(batch_np, device), None, step, epoch,
+                            proposal_mode=True)
+
+    calls = []
+    reset_kernel_launches()
+    with recorded_proposal(calls):
+        z_card = run(dev)
+    torch.cuda.synchronize()
+    got = kernel_launches()
+    z_cpu = run(cpu)
+    with unrounded_proposal():
+        z_f32 = run(dev)
+    rounds = scenes["cpu"].sampler_cfg.max_total_iters
+    rows56 = {k: got[k] for k in TRUNK_QUERIES + tuple(n + ".relu" for n in TRUNK_QUERIES)}
+    print(f"  proposal mode on the card: row 1 {got['knn_inverse_warp']} launches (the hand, "
+          f"{rounds} rounds), rows 5-6 {rows56}", flush=True)
+    if got["knn_inverse_warp"] != rounds or any(rows56.values()):
+        raise AssertionError("proposal mode: row 1 not launched once a round, or rows 5-6 were")
+    bad = [nid for nid, t in z_card.items()
+           if not bool(torch.isfinite(t).all()) or bool((torch.diff(t, dim=1) < 0).any())]
+    if bad:
+        raise AssertionError(f"proposal mode: z tables non-finite or unsorted: {bad}")
+
+    def to_cpu(x):
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x.cpu() if torch.is_tensor(x) else x
+
+    read = torch.cat([out.reshape(-1).cpu() for _, _, out in calls])
+    ref = torch.cat([apply_proposal_net(*to_cpu(list(a)), **to_cpu(k)).reshape(-1)
+                     for a, k, _ in calls])
+    check_bf16_query(f"the sdf the card's proposal read ({len(calls)} calls, {read.numel()} "
+                     f"points), card vs CPU at the same inputs", read, ref)
+    worst = max(z_moved_share(torch, z_card[n], z_cpu[n])[0] for n in z_cpu)
+    worst32 = max(z_moved_share(torch, z_f32[n], z_cpu[n])[0] for n in z_cpu)
+    for nid in z_cpu:
+        print(f"  proposal z table {nid}, samples moved beyond 0.1 x the median spacing: card "
+              f"vs CPU {z_moved(torch, z_card[nid], z_cpu[nid])}, the card's proposal "
+              f"unrounded {z_moved(torch, z_f32[nid], z_cpu[nid])}; {z_card[nid].numel()} "
+              f"samples", flush=True)
+    limit = z_moved_limit("proposal", z_cpu["object"].numel())
+    print(f"  proposal z tables: worst share card vs CPU {worst:.5f} (limit {limit:.5f}) "
+          f"{'ok' if worst <= limit else 'FAIL'}; the unrounded control's {worst32:.5f} "
+          f"{'fails it: ok' if worst32 > limit else 'passes: FAIL'}", flush=True)
+    if worst > limit or worst32 <= limit:
+        raise AssertionError("proposal z tables: card and CPU apart, or the unrounded control "
+                             "within")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", type=str, default="",
+                    help="run only these phases after 1-2 (comma-separated, e.g. 3,4,11): a "
+                         "partial run prints no result and checks no path it skipped")
+    only = {int(x) for x in ap.parse_args(argv).phases.split(",") if x}
+
+    def want(n: int) -> bool:
+        return not only or n in only
+
     if not os.path.isdir(os.path.join(ROOT, "hold_tpu_torch")):
         print("chip_smoke.py must run from a checkout holding hold_tpu_torch/", file=sys.stderr)
         return 2
@@ -3112,11 +3570,64 @@ def main() -> int:
     seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=RAYS_PER_FRAME)
     args, cfg = slice_config()
 
-    phase("3 kernel checks")
-    results = kernel_checks(torch, seq, args, cfg, dev)
-    fast_shape_checks(torch, seq, data_root, dev, results)
-    fast_shade_checks(torch, seq, data_root, dev, results)
+    if want(3):
+        phase("3 kernel checks")
+        results = kernel_checks(torch, seq, args, cfg, dev)
+        fast_shape_checks(torch, seq, data_root, dev, results)
+        fast_shade_checks(torch, seq, data_root, dev, results)
+    if want(4):
+        card_vs_cpu(torch, seq, data_root, args, cfg, dev)
+    if only and only <= {3, 4, 11}:
+        if 11 in only:
+            phase("11 proposal and sampler knobs")
+            proposal_and_knobs(torch, seq, args, cfg, dev)
+        print(f"  total {time.perf_counter() - t_all:.1f} s; a partial run (--phases): no result")
+        return 0
+    if only:
+        raise SystemExit("--phases: phases 5-10 depend on each other; run them all")
+    launches = train_and_serve(torch, seq, data_root, args, cfg, dev, t_all)
 
+    phase("11 proposal and sampler knobs: the trunk sampler then proposal mode at 1280 and "
+          "5120 rays, proposal mode from step 0, the relu trunk and the strided search")
+    launches.update(proposal_and_knobs(torch, seq, args, cfg, dev))
+    print(f"  total {time.perf_counter() - t_all:.1f} s", flush=True)
+
+    kernels = []
+    for name, (src, replaces, paths) in KERNELS.items():
+        r = results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[src], "replaces": replaces,
+            "launches": launches[paths[0]][name] if paths else 0,
+            "path": paths[0] if paths else None,
+            "launches_by_path": {k: v[name] for k, v in launches.items()},
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape")},
+            **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
+                                 "normal_p99", "split_ms", "wrapper_ms", "search", "support",
+                                 "buffers", "brute_force_bound_ms", "library_call",
+                                 "library_note", "fast", "softplus_ms") if k in r},
+        })
+    for name, (counter, path) in FORMS.items():
+        base, r = KERNELS[counter], results[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[base[0]], "replaces": base[1],
+            "launches": launches[path][counter], "path": path, "counted_as": counter,
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "shape")},
+            **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "search",
+                                 "brute_force_bound_ms", "library_note") if k in r},
+        })
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def card_vs_cpu(torch, seq, data_root, args, cfg, dev) -> None:
+    """Phase 4."""
     phase("4 card vs CPU agreement on a small batch")
     print("  -- chunked shade (--no_fused_train)", flush=True)
     agreement_check(torch, seq, args, cfg, dev, fused_train=False)
@@ -3129,7 +3640,12 @@ def main() -> int:
                     rays=int(fast_args["num_sample"]), z_case="fast")
     print("  -- render", flush=True)
     render_agreement(torch, seq, args, cfg, dev)
+    print("  -- the sampler in proposal mode", flush=True)
+    proposal_agreement(torch, seq, args, cfg, dev)
 
+
+def train_and_serve(torch, seq, data_root, args, cfg, dev, t_all) -> dict:
+    """Phases 5-10; the launches of each run by path."""
     phase(f"5 the slice: run_training, {STEPS} steps fused and validated, resumed for 2, "
           f"{LAYER_STEPS} layer by layer, {LAYER_STEPS} with the chunked shade, 2 at -f, "
           f"{LAYER_STEPS} with two hands")
@@ -3182,30 +3698,8 @@ def main() -> int:
     phase(f"10 data parallel: {DP_STEPS} steps in one process and in {DP_WORLD} ranks (gloo, "
           f"one card), two controls, one NCCL step, the remote sink")
     launches.update(data_parallel(torch, data_root, args, cfg, dev))
-    print(f"  total {time.perf_counter() - t_all:.1f} s", flush=True)
-
-    kernels = []
-    for name, (src, replaces, paths) in KERNELS.items():
-        r = results[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[src], "replaces": replaces,
-            "launches": launches[paths[0]][name] if paths else 0,
-            "path": paths[0] if paths else None,
-            "launches_by_path": {k: v[name] for k, v in launches.items()},
-            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                 "library_ms", "shape")},
-            **{k: r[k] for k in ("mean_abs_err", "trunk_tflop_s", "tflop_s", "errors",
-                                 "normal_p99", "split_ms", "wrapper_ms", "search", "support",
-                                 "buffers", "brute_force_bound_ms", "library_call",
-                                 "library_note", "fast") if k in r},
-        })
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
+    print(f"  phases 5-10 end at {time.perf_counter() - t_all:.1f} s", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

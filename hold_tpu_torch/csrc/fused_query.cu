@@ -7,6 +7,11 @@
 //   <HAND, !ZTAB>  fused_hand_sampler_sdf     (fused_query.py:389)
 //   <!HAND, !ZTAB> fused_object_sampler_sdf   (fused_query.py:419)
 //
+// Each in two trunk instances: query_trunk_kernel<false> is the TPU kernel's
+// default, query_trunk_kernel<true> its relu=True form (HOLD_SAMPLER_RELU,
+// fused_query.py:159-202): the seven hidden layers take relu in place of
+// softplus100, layer 7 (into the head) keeps softplus100.
+//
 // Per query point, in one pass: the world point (cam + z*dir from the
 // sampler's z table, or a point buffer) -> canonical space (the hand's KNN
 // blend and inverse skinning from knn_common.cuh; the object's rigid inverse
@@ -163,22 +168,34 @@ __global__ void __launch_bounds__(TILE) query_embed_kernel(const QueryArgs q) {
             *reinterpret_cast<const uint4*>(e + 8 * c);
 }
 
-// bias + softplus100 on a warpgroup's accumulator.  Hidden layers round to
+// a trunk layer's activation: softplus100, or relu for the relu trunk's
+// hidden layers
+template <bool SOFTPLUS>
+__device__ __forceinline__ float activation(float x) {
+    if constexpr (SOFTPLUS)
+        return softplus100_fast(x);
+    else
+        return fmaxf(x, 0.0f);
+}
+
+// bias + activation on a warpgroup's accumulator.  Hidden layers round to
 // bf16 and write the next A tile (rows of this warp) in the wgmma swizzle; the
 // LAST layer stays f32 and adds its dot with the head row into rowsum (rows g
-// and g + 8 of the warp).
-template <bool LAST>
+// and g + 8 of the warp).  With RELU the hidden layers take relu; the LAST
+// layer's activation is softplus100 either way.
+template <bool LAST, bool RELU>
 __device__ __forceinline__ void epilogue(const float (&d)[128], const float* bias,
                                          const float* head_w, unsigned char* act_wg, int row,
                                          int t, float (&rowsum)[2]) {
+    constexpr bool SOFTPLUS = LAST || !RELU;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
         const int col = 8 * j + 2 * t;
         const float2 b = *reinterpret_cast<const float2*>(bias + col);
-        const float v0 = softplus100_fast(d[4 * j] + b.x);
-        const float v1 = softplus100_fast(d[4 * j + 1] + b.y);
-        const float v2 = softplus100_fast(d[4 * j + 2] + b.x);
-        const float v3 = softplus100_fast(d[4 * j + 3] + b.y);
+        const float v0 = activation<SOFTPLUS>(d[4 * j] + b.x);
+        const float v1 = activation<SOFTPLUS>(d[4 * j + 1] + b.y);
+        const float v2 = activation<SOFTPLUS>(d[4 * j + 2] + b.x);
+        const float v3 = activation<SOFTPLUS>(d[4 * j + 3] + b.y);
         if constexpr (LAST) {
             const float2 h = *reinterpret_cast<const float2*>(head_w + col);
             rowsum[0] += v0 * h.x + v1 * h.y;
@@ -192,6 +209,7 @@ __device__ __forceinline__ void epilogue(const float (&d)[128], const float* bia
 }
 
 // --- the trunk and the head on one tile of 128 embedded points
+template <bool RELU>
 __global__ void __launch_bounds__(THREADS, 1) query_trunk_kernel(const QueryArgs q) {
     extern __shared__ unsigned char smem_raw[];
     unsigned char* smem = smem_raw + ((1024 - (cta::smem_u32(smem_raw) & 1023)) & 1023);
@@ -245,12 +263,12 @@ __global__ void __launch_bounds__(THREADS, 1) query_trunk_kernel(const QueryArgs
         else
             cta::product<4, false>(d, a_wg, e_wg, ring);
         if (l < 7) {
-            epilogue<false>(d, s_f + l * H, nullptr, act_wg, row, t, rowsum);
+            epilogue<false, RELU>(d, s_f + l * H, nullptr, act_wg, row, t, rowsum);
             // the next layer's wgmma reads what this warpgroup has just written
             cta::fence_proxy_async();
             cta::named_barrier(1 + wg, 128);
         } else {
-            epilogue<true>(d, s_f + l * H, s_f + OFF_HEAD_W, act_wg, row, t, rowsum);
+            epilogue<true, RELU>(d, s_f + l * H, s_f + OFF_HEAD_W, act_wg, row, t, rowsum);
         }
     }
 
@@ -268,23 +286,28 @@ __global__ void __launch_bounds__(THREADS, 1) query_trunk_kernel(const QueryArgs
     }
 }
 
+template <bool RELU>
+cudaError_t launch_trunk(const QueryArgs& q, const dim3 grid, void* stream) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        query_trunk_kernel<RELU>, cudaFuncAttributeMaxDynamicSharedMemorySize, SM_BYTES);
+    if (err != cudaSuccess) return err;
+    query_trunk_kernel<RELU><<<grid, THREADS, SM_BYTES, (cudaStream_t)stream>>>(q);
+    return cudaGetLastError();
+}
+
 template <bool HAND, bool ZTAB>
-cudaError_t launch(const QueryArgs& q, int B, void* stream) {
+cudaError_t launch(const QueryArgs& q, int B, int relu, void* stream) {
     if (B == 0 || q.NP == 0) return cudaSuccess;
     const int vert_bytes = HAND ? (int)search_smem(q.V) : 0;
     cudaError_t err = cudaFuncSetAttribute(query_embed_kernel<HAND, ZTAB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            vert_bytes);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(query_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SM_BYTES);
-    if (err != cudaSuccess) return err;
     const dim3 grid((q.NP + TILE - 1) / TILE, B);
     query_embed_kernel<HAND, ZTAB><<<grid, TILE, vert_bytes, (cudaStream_t)stream>>>(q);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    query_trunk_kernel<<<grid, THREADS, SM_BYTES, (cudaStream_t)stream>>>(q);
-    return cudaGetLastError();
+    return relu ? launch_trunk<true>(q, grid, stream) : launch_trunk<false>(q, grid, stream);
 }
 
 QueryArgs trunk_args(const void* window, int multires, const void* wts, const void* fpack,
@@ -307,12 +330,12 @@ extern "C" {
 // dirs, cam (B*P, 3), z (B, P, S), verts (B, V, 3), skin (B, V, J),
 // tfs (B, J, 4, 4), order (V,) int32 -> out (B, P, S); stats null or the
 // search's six counters (knn_common.cuh).  emb: scratch of 16 KB per 128-point tile of a
-// frame, in every entry point.
+// frame, in every entry point; relu: 1 for the relu trunk, 0 for softplus100.
 int hold_fused_hand_sdf_z(const void* dirs, const void* cam, const void* z, const void* verts,
                           const void* skin, const void* tfs, const void* order,
                           const void* window, const void* wts, const void* fpack, void* emb,
                           void* out, int B, int P, int S, int V, int J, int K, int multires,
-                          void* stats, void* stream) {
+                          int relu, void* stats, void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, P * S);
     q.dirs = (const float*)dirs;
     q.cam = (const float*)cam;
@@ -327,13 +350,14 @@ int hold_fused_hand_sdf_z(const void* dirs, const void* cam, const void* z, cons
     q.V = V;
     q.J = J;
     q.K = K;
-    return launch<true, true>(q, B, stream);
+    return launch<true, true>(q, B, relu, stream);
 }
 
 // dirs, cam (B*P, 3), z (B, P, S), tf12 (B, 12) -> out (B, P, S).
 int hold_fused_object_sdf_z(const void* dirs, const void* cam, const void* z, const void* tf12,
                             const void* window, const void* wts, const void* fpack, void* emb,
-                            void* out, int B, int P, int S, int multires, void* stream) {
+                            void* out, int B, int P, int S, int multires, int relu,
+                            void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, P * S);
     q.dirs = (const float*)dirs;
     q.cam = (const float*)cam;
@@ -341,7 +365,7 @@ int hold_fused_object_sdf_z(const void* dirs, const void* cam, const void* z, co
     q.P = P;
     q.S = S;
     q.tf12 = (const float*)tf12;
-    return launch<false, true>(q, B, stream);
+    return launch<false, true>(q, B, relu, stream);
 }
 
 // pts (B, N, 3), verts (B, V, 3), skin (B, V, J), tfs (B, J, 4, 4), order (V,)
@@ -349,7 +373,7 @@ int hold_fused_object_sdf_z(const void* dirs, const void* cam, const void* z, co
 int hold_fused_hand_sdf(const void* pts, const void* verts, const void* skin, const void* tfs,
                         const void* order, const void* window, const void* wts,
                         const void* fpack, void* emb, void* out, int B, int N, int V, int J,
-                        int K, int multires, void* stats, void* stream) {
+                        int K, int multires, int relu, void* stats, void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, N);
     q.pts = (const float*)pts;
     q.verts = (const float*)verts;
@@ -360,17 +384,17 @@ int hold_fused_hand_sdf(const void* pts, const void* verts, const void* skin, co
     q.V = V;
     q.J = J;
     q.K = K;
-    return launch<true, false>(q, B, stream);
+    return launch<true, false>(q, B, relu, stream);
 }
 
 // pts (B, N, 3), tf12 (B, 12) -> out (B, N).
 int hold_fused_object_sdf(const void* pts, const void* tf12, const void* window, const void* wts,
                           const void* fpack, void* emb, void* out, int B, int N, int multires,
-                          void* stream) {
+                          int relu, void* stream) {
     QueryArgs q = trunk_args(window, multires, wts, fpack, emb, out, N);
     q.pts = (const float*)pts;
     q.tf12 = (const float*)tf12;
-    return launch<false, false>(q, B, stream);
+    return launch<false, false>(q, B, relu, stream);
 }
 
 }  // extern "C"

@@ -46,8 +46,11 @@ from .mlp import (
     apply_implicit_trunk,
     implicit_net_shapes,
     implicit_sdf_from_trunk,
+    apply_proposal_net,
     init_implicit_net,
+    init_proposal_net,
     init_rendering_net,
+    proposal_net_shapes,
     rendering_net_shapes,
 )
 from .nodes import (
@@ -96,7 +99,8 @@ def _object_render_opt(opt_model) -> dict:
 
 def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
                 fused_render: bool = True, fused_train: bool = True,
-                remat: bool = True) -> Scene:
+                remat: bool = True, proposal: bool = True, node_bounds: bool = False,
+                sampler_knn_stride: int = 1, sampler_relu: bool = False) -> Scene:
     """Static scene state on ``device``.  ``fused_sampler=False`` makes every
     node's sampler query the trunk layer by layer (the JAX package's
     ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
@@ -106,11 +110,16 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
     (``HOLD_NO_FUSED_TRAIN=1``); otherwise nodes whose nets the fused kernels
     support use them.  ``remat=False`` makes the chunked shade keep every
     chunk's graph instead of recomputing it in the backward
-    (``HOLD_NO_REMAT=1``)."""
-    if opt_model.get("proposal", {}).get("enabled", False):
-        raise NotImplementedError(
-            "the proposal net is not ported: set model.proposal.enabled to false"
-        )
+    (``HOLD_NO_REMAT=1``).
+
+    Every node gets a proposal net when ``model.proposal.enabled`` and
+    ``proposal`` (``proposal=False`` is the JAX ``HOLD_NO_PROPOSAL=1``).  The
+    sampler's knobs, each off by default as in the JAX package:
+    ``node_bounds`` clips each node's rays to its bounding sphere
+    (``HOLD_NODE_BOUNDS=1``), ``sampler_knn_stride`` n searches every n-th
+    MANO vertex in the sampler (``HOLD_SAMPLER_KNN_STRIDE``) and
+    ``sampler_relu`` gives the fused query its relu trunk
+    (``HOLD_SAMPLER_RELU=1``)."""
     if device is None:
         raise ValueError("build_scene needs a device")
     device = torch.device(device)
@@ -126,6 +135,10 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
         conv_check=rs.get("conv_check", "current"),
     )
     barf_cfg = (int(args.get("barf_s", 1000)), int(args.get("barf_e", 10000)))
+    prop_cfg = opt_model.get("proposal", {})
+    prop_plan = (proposal_net_shapes(prop_cfg) if proposal and prop_cfg.get("enabled", False)
+                 else None)
+    stride = max(1, int(sampler_knn_stride))
     servers, plans, sub_ops = {}, {}, {}
     for nid in node_ids:
         if nid == "object":
@@ -141,8 +154,11 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             M, faces_div = mano_subdivision_operator(servers[nid].consts.faces, nid == "right")
             sub_ops[nid] = (torch.as_tensor(M, device=device),
                             torch.as_tensor(faces_div, device=device))
-            orders = {"tile_order": tile_order(servers[nid].verts_c[0]),
-                      "sub_tile_order": tile_order(sub_ops[nid][0] @ servers[nid].verts_c[0])}
+            verts_c = servers[nid].verts_c[0]
+            orders = {"tile_order": tile_order(verts_c),
+                      "sub_tile_order": tile_order(sub_ops[nid][0] @ verts_c),
+                      "knn_stride": stride,
+                      "stride_tile_order": tile_order(verts_c[::stride]) if stride > 1 else None}
         implicit = implicit_net_shapes(opt_model["implicit_network"], specs)
         rendering = rendering_net_shapes(render_opt, specs)
         # the JAX package also asks 8 rays x N_samples_eval to split into
@@ -156,7 +172,8 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             fused_render=fused_render and supports_fused_render(implicit, rendering),
             fused_train=(fused_train and fused_render
                          and supports_fused_render(implicit, rendering)),
-            remat=remat, **orders,
+            remat=remat, proposal=prop_plan, sampler_relu=sampler_relu,
+            node_bounds=node_bounds, **orders,
         )
     return Scene(
         node_ids=node_ids, servers=servers, plans=plans,
@@ -208,6 +225,11 @@ def init_scene_params(gen: torch.Generator, scene: Scene, scene_data: dict) -> d
             }
         params[nid] = node
     params["background"] = init_background(gen, opt_model, scene.n_frames)
+    # the proposal nets last: every other tensor draws what it drew before
+    # the proposal was ported
+    for nid in scene.node_ids:
+        if scene.plans[nid].proposal is not None:
+            params[nid]["proposal"] = init_proposal_net(gen, opt_model.get("proposal", {}))
     return leaf_params(params, scene.device)
 
 
@@ -377,15 +399,34 @@ def _rays(batch):
 
 
 @torch.no_grad()
-def sample_all_z(params, scene: Scene, batch, gen, step, epoch) -> dict:
-    """Sampler stage: per-node error-bound z tables (no gradient)."""
+def sample_all_z(params, scene: Scene, batch, gen, step, epoch,
+                 proposal_mode: bool = False) -> dict:
+    """Sampler stage: per-node error-bound z tables (no gradient);
+    ``proposal_mode``: each node with a proposal net queries it in place of
+    its trunk."""
     ray_dirs, cam_loc = _rays(batch)
     out = {}
     for nid in scene.node_ids:
         fn = object_node_sample_z if nid == "object" else mano_node_sample_z
         out[nid] = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
-                      cam_loc, step, epoch, gen)
+                      cam_loc, step, epoch, gen, proposal_mode=proposal_mode)
     return out
+
+
+def proposal_targets(nparams, scene: Scene, nid: str, sample_dict: dict, step) -> dict:
+    """The proposal's distillation pair at every 6th sample of every ray:
+    its f32 prediction at the (detached) canonical points and the trunk's
+    detached sdf there, clipped to +-2 scene radii (a bounded embedding
+    cannot follow the far field's magnitudes, and the density is saturated
+    beyond).  Only the proposal's tensors get a gradient from it."""
+    plans = scene.plans[nid]
+    pts = sample_dict["canonical_pts"][:, :, ::6].detach().reshape(-1, 3)
+    clip_v = 2.0 * scene.sampler_cfg.scene_bounding_sphere
+    tgt = torch.clamp(sample_dict["sample_sdf"][:, :, ::6].detach().reshape(-1), -clip_v, clip_v)
+    return {"proposal_pred": apply_proposal_net(nparams["proposal"], plans.proposal, pts,
+                                                step=step, barf_cfg=plans.barf_cfg,
+                                                embedding=plans.implicit["embedding"]),
+            "proposal_tgt": tgt}
 
 
 def holdnet_forward(params, scene: Scene, batch, mesh_state, draws, step, epoch,
@@ -411,6 +452,8 @@ def holdnet_forward(params, scene: Scene, batch, mesh_state, draws, step, epoch,
         else:
             tgt = prepare_loss_targets_hand(params[nid], scene, nid, sample_dicts[nid],
                                             step, draws)
+        if "proposal" in params[nid]:
+            tgt.update(proposal_targets(params[nid], scene, nid, sample_dicts[nid], step))
         out.update({f"{nid}.{k}": v for k, v in tgt.items()})
 
     out.update(volumetric_render(merge_factors(factors_list)))

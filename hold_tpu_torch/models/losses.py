@@ -92,8 +92,15 @@ def compute_losses(batch: dict, outputs: dict, node_ids, step: int, split=None) 
             cano = cano + outputs[f"{nid}.active"] * mano_cano_loss(
                 outputs[f"{nid}.pred_sdf"], outputs[f"{nid}.pts2mano_sdf_cano"]
             )
-    # the proposal-net distillation term is 0: the surrogate is not ported
-    losses["loss/proposal"] = torch.zeros((), device=losses["loss/rgb"].device)
+    # the proposal nets' distillation (no reference counterpart): L1 of each
+    # node's surrogate to the trunk's sdf at this step's samples; both are
+    # detached upstream, so the term trains the proposal nets alone
+    prop = torch.zeros((), device=losses["loss/rgb"].device)
+    for nid in node_ids:
+        if f"{nid}.proposal_pred" in outputs:
+            prop = prop + torch.mean(torch.abs(outputs[f"{nid}.proposal_pred"]
+                                               - outputs[f"{nid}.proposal_tgt"]))
+    losses["loss/proposal"] = prop
     eik = eik * 1e-5
     losses["loss/eikonal"] = torch.where(eik > 8e-4, eik, torch.zeros_like(eik))
     losses["loss/mano_cano"] = cano * 5.0

@@ -5,6 +5,8 @@ hold_tpu/models/mlp.py).
   init, weight normalisation, conditioning at layer 0, output
   [sdf, 256-d feature]; the width-1 SDF head is applied separately so the
   double backward (normals, eikonal) only runs through that one row.
+- ProposalNet: [39, 64, 64, 64, 1] softplus100 surrogate of the SDF for
+  the sampler's queries after a warmup.
 - RenderingNet: 'pose' mode (points, normals, 8-d pose embedding, features)
   and 'nerf_frame_encoding' mode (embedded view dirs, frame latent,
   features); ReLU hidden layers, sigmoid output.
@@ -214,6 +216,38 @@ def apply_implicit_net(params, plan, x, cond, step=None, barf_cfg=(0, 1)):
     """(N, 1 + feature_size): [sdf, features]."""
     return _hidden_layers(params, plan, _embed(plan, x, step, barf_cfg), cond,
                           plan["num_layers"] - 1)
+
+
+# --------------------------------------------------------------------------
+# Proposal net: a small canonical-SDF surrogate distilled online from the
+# trunk (``loss/proposal``); after a warmup it replaces the trunk in the
+# sampler's queries.  Plain PyTorch, as the JAX package's is plain jnp.
+# --------------------------------------------------------------------------
+
+def proposal_net_shapes(opt: dict) -> dict:
+    width = int(opt.get("width", 64))
+    depth = int(opt.get("depth", 3))
+    multires = int(opt.get("multires", 6))
+    return {"dims": [embed_dim(3, multires)] + [width] * depth + [1], "multires": multires}
+
+
+def init_proposal_net(gen: torch.Generator, opt: dict) -> dict:
+    dims = proposal_net_shapes(opt)["dims"]
+    return {"layers": [_linear_params(gen, dims[l], dims[l + 1]) for l in range(len(dims) - 1)]}
+
+
+def apply_proposal_net(params: dict, plan: dict, x: torch.Tensor, step=None,
+                       barf_cfg: tuple = (0, 1), embedding: str = "barf") -> torch.Tensor:
+    """(N, 3) canonical points -> (N,) float32 surrogate sdf, through the
+    trunk's (annealed) embedding.  A bf16 tree runs its layers in bf16
+    (``_apply_linear`` casts the f32 embedding down), an f32 tree in f32."""
+    h = make_embedder(embedding, plan["multires"], *barf_cfg)(x, step)
+    n = len(params["layers"])
+    for l, layer in enumerate(params["layers"]):
+        h = _apply_linear(layer, h)
+        if l < n - 1:
+            h = softplus100(h)
+    return h[..., 0].float()
 
 
 # --------------------------------------------------------------------------

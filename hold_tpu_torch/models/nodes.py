@@ -11,6 +11,12 @@ canonical field.  Training runs in two stages:
   kernel per node (``ops/fused_query.py``: warp, embedding, trunk and head
   from the z table); otherwise the layer-by-layer path warps the hand's
   points with the ``knn_inverse_warp`` kernel and runs the trunk in torch.
+  In proposal mode (after the proposal's warmup) the queries read the
+  proposal net instead, the hand's points warped by ``knn_inverse_warp``.
+  The knobs of ``NodePlans``: the fused query's relu trunk
+  (``sampler_relu``), the hand's search on every n-th vertex
+  (``knn_stride``) and each ray's interval clipped to the node's bounding
+  sphere (``node_bounds``).
 - ``*_node_forward``: the grad stage.  The hand's warp and inverse skinning
   Jacobian are the ``knn_inverse_warp_diff`` and ``knn_jacobian_inverse``
   kernels.  By default (``NodePlans.fused_train``) the shade (SDF, its
@@ -58,12 +64,13 @@ from ..ops.fused_render import (
 )
 from ..ops.fused_shade import fused_shade_train
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
-from ..render.ray_sampler import SamplerConfig, error_bound_z_vals
+from ..render.ray_sampler import SamplerConfig, error_bound_z_vals, node_ray_interval
 from ..utils.transforms import inverse_mat3, safe_norm
 from .density import laplace_beta, laplace_density
 from .mlp import (
     _apply_linear,
     apply_implicit_trunk,
+    apply_proposal_net,
     apply_rendering_net,
     cast_tree,
     implicit_feat_from_trunk,
@@ -90,6 +97,14 @@ class NodePlans(NamedTuple):
     # only: of the MANO vertices and of the subdivided mesh's
     tile_order: torch.Tensor | None = None
     sub_tile_order: torch.Tensor | None = None
+    # the proposal net's plan (models/mlp.py proposal_net_shapes), or None
+    proposal: dict | None = None
+    sampler_relu: bool = False  # the fused query's relu trunk (HOLD_SAMPLER_RELU)
+    node_bounds: bool = False  # the sampler's rays clipped to the node (HOLD_NODE_BOUNDS)
+    # the sampler's searches on every knn_stride-th MANO vertex, in the tile
+    # order of that set (HOLD_SAMPLER_KNN_STRIDE); hands only
+    knn_stride: int = 1
+    stride_tile_order: torch.Tensor | None = None
 
 
 def _flat_per_point(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -396,72 +411,142 @@ def _bf16_trunk_sdf(implicit_bf16, plans, x_c, step):
     return implicit_sdf_from_trunk(implicit_bf16, h).float()
 
 
+def _use_proposal(nparams, plans: NodePlans, proposal_mode: bool) -> bool:
+    return proposal_mode and plans.proposal is not None and "proposal" in nparams
+
+
+def _proposal_query_z(nparams, plans: NodePlans, ray_dirs, cam_loc, B, P, to_canonical, step):
+    """The sampler's query through the proposal net on its bf16 tree: world
+    points -> canonical (``to_canonical``, (B, N, 3) -> (B, N, 3)) -> the
+    surrogate sdf, clipped to +-2 scene radii as the distillation target is
+    (the density is saturated beyond)."""
+    prop_bf16 = cast_tree(nparams["proposal"], torch.bfloat16)
+    clip_v = 2.0 * plans.sampler.scene_bounding_sphere
+
+    def query_z(z_RS):
+        S = z_RS.shape[1]
+        pts = (cam_loc[:, None, :] + z_RS[:, :, None] * ray_dirs[:, None, :]).reshape(B, P * S, 3)
+        sdf = apply_proposal_net(prop_bf16, plans.proposal, to_canonical(pts).reshape(-1, 3),
+                                 step=step, barf_cfg=plans.barf_cfg,
+                                 embedding=plans.implicit["embedding"])
+        return torch.clamp(sdf, -clip_v, clip_v).reshape(B * P, S)
+
+    return query_z
+
+
+def _node_bound_sphere(verts_posed: torch.Tensor, P: int, margin: float) -> tuple:
+    """(B, V, 3) posed points -> per-ray centres (B*P, 3) and radii (B*P,):
+    each frame's centroid and its farthest point's distance times
+    ``margin``."""
+    B = verts_posed.shape[0]
+    center_b = verts_posed.mean(dim=1)
+    rad_b = torch.linalg.norm(verts_posed - center_b[:, None], dim=-1).amax(dim=1) * margin
+    return (center_b[:, None, :].expand(B, P, 3).reshape(-1, 3),
+            rad_b[:, None].expand(B, P).reshape(-1))
+
+
+def _sampler_vertex_set(plans: NodePlans, verts_posed, skin_w) -> tuple:
+    """The hand's vertices, skinning weights and tile order the sampler's
+    searches use: every ``knn_stride``-th vertex (the JAX package's
+    ``HOLD_SAMPLER_KNN_STRIDE``); the grad stage always searches them all."""
+    n = plans.knn_stride
+    if n == 1:
+        return verts_posed, skin_w, plans.tile_order
+    return (verts_posed[:, ::n].contiguous(), skin_w[:, ::n].contiguous(),
+            plans.stride_tile_order)
+
+
 @torch.no_grad()
 def mano_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_loc,
-                       step, epoch, gen):
-    """Stop-gradient error-bound z table (R, S_f) for the hand."""
+                       step, epoch, gen, proposal_mode: bool = False):
+    """Stop-gradient error-bound z table (R, S_f) for the hand.  In
+    ``proposal_mode`` (with a proposal net) the queries warp the points with
+    the ``knn_inverse_warp`` kernel and read the proposal net; otherwise the
+    fused query kernel, or the trunk layer by layer."""
     B, P = batch["uv"].shape[:2]
     srv_out, _ = _mano_pose(nparams, server, batch, epoch)
     tfs = srv_out.tfs.contiguous()
     verts_posed = srv_out.verts.contiguous()
     skin_w = server.skin_weights_c.expand(B, -1, -1).contiguous()
-    resolved = resolve_weight_norm(nparams["implicit"])
     beta0 = laplace_beta(nparams["density"])
+    near = far = None
+    if plans.node_bounds:
+        center, radius = _node_bound_sphere(verts_posed, P, 1.15)
+        near, far = node_ray_interval(cam_loc, ray_dirs, center, radius + plans.max_dist,
+                                      plans.sampler)
+    q_verts, q_skin, q_order = _sampler_vertex_set(plans, verts_posed, skin_w)
 
-    if plans.fused_query:
-        pack = pack_trunk_weights(resolved, plans.implicit)
+    query_z = sampler_sdf = None
+    if _use_proposal(nparams, plans, proposal_mode):
+        def to_canonical(pts):
+            return knn_inverse_warp(pts, q_verts, q_skin, tfs, K=plans.knn_k,
+                                    max_dist=plans.max_dist, order=q_order)[0]
+
+        query_z = _proposal_query_z(nparams, plans, ray_dirs, cam_loc, B, P, to_canonical, step)
+    elif plans.fused_query:
+        pack = pack_trunk_weights(resolve_weight_norm(nparams["implicit"]), plans.implicit)
         window = embed_window(plans.implicit, step, plans.barf_cfg, ray_dirs.device)
         dirs, cams = ray_dirs.contiguous(), cam_loc.contiguous()
 
         def query_z(z_RS):
             sdf = fused_hand_sampler_sdf_z(dirs, cams, z_RS.reshape(B, P, -1).contiguous(),
-                                           verts_posed, skin_w, tfs, window, pack,
-                                           K=plans.knn_k, order=plans.tile_order)
+                                           q_verts, q_skin, tfs, window, pack, K=plans.knn_k,
+                                           relu=plans.sampler_relu, order=q_order)
             return sdf.reshape(B * P, -1)
+    else:
+        implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
 
-        return error_bound_z_vals(gen, None, ray_dirs, cam_loc, beta0, plans.sampler,
-                                  query_z_fn=query_z)
+        def sampler_sdf(pts_RS3):
+            S = pts_RS3.shape[1]
+            x_c, _ = knn_inverse_warp(pts_RS3.reshape(B, P * S, 3), verts_posed, skin_w, tfs,
+                                      K=plans.knn_k, max_dist=plans.max_dist,
+                                      order=plans.tile_order)
+            return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3),
+                                   step).reshape(B * P, S)
 
-    implicit_bf16 = cast_tree(resolved, torch.bfloat16)
-
-    def sampler_sdf(pts_RS3):
-        S = pts_RS3.shape[1]
-        x_c, _ = knn_inverse_warp(pts_RS3.reshape(B, P * S, 3), verts_posed, skin_w, tfs,
-                                  K=plans.knn_k, max_dist=plans.max_dist,
-                                  order=plans.tile_order)
-        return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
-
-    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)
+    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler,
+                              query_z_fn=query_z, near=near, far=far)
 
 
 @torch.no_grad()
 def object_node_sample_z(nparams, server, plans: NodePlans, batch, ray_dirs, cam_loc,
-                         step, epoch, gen):
+                         step, epoch, gen, proposal_mode: bool = False):
     """Stop-gradient error-bound z table (R, S_f) for the object."""
     B, P = batch["uv"].shape[:2]
-    tfs = _object_pose(nparams, server, batch).obj_tfs
-    resolved = resolve_weight_norm(nparams["implicit"])
+    srv_out = _object_pose(nparams, server, batch)
+    tfs = srv_out.obj_tfs
     beta0 = laplace_beta(nparams["density"])
+    near = far = None
+    if plans.node_bounds:
+        # the sparse points' sphere with a wide margin, the radius floored so
+        # that the geometric init's sphere always lies inside
+        center, radius = _node_bound_sphere(srv_out.verts, P, 1.75)
+        radius = torch.clamp(radius, min=0.25 * plans.sampler.scene_bounding_sphere)
+        near, far = node_ray_interval(cam_loc, ray_dirs, center, radius, plans.sampler)
 
-    if plans.fused_query:
-        pack = pack_trunk_weights(resolved, plans.implicit)
+    query_z = sampler_sdf = None
+    if _use_proposal(nparams, plans, proposal_mode):
+        query_z = _proposal_query_z(nparams, plans, ray_dirs, cam_loc, B, P,
+                                    lambda pts: object_deform(pts, tfs, inverse=True), step)
+    elif plans.fused_query:
+        pack = pack_trunk_weights(resolve_weight_norm(nparams["implicit"]), plans.implicit)
         window = embed_window(plans.implicit, step, plans.barf_cfg, ray_dirs.device)
         tf12 = torch.cat([inverse_mat3(tfs[:, :3, :3]).reshape(B, 9), tfs[:, :3, 3]], dim=-1)
         dirs, cams = ray_dirs.contiguous(), cam_loc.contiguous()
 
         def query_z(z_RS):
             sdf = fused_object_sampler_sdf_z(dirs, cams, z_RS.reshape(B, P, -1).contiguous(),
-                                             tf12.contiguous(), window, pack)
+                                             tf12.contiguous(), window, pack,
+                                             relu=plans.sampler_relu)
             return sdf.reshape(B * P, -1)
+    else:
+        implicit_bf16 = cast_tree(resolve_weight_norm(nparams["implicit"]), torch.bfloat16)
 
-        return error_bound_z_vals(gen, None, ray_dirs, cam_loc, beta0, plans.sampler,
-                                  query_z_fn=query_z)
+        def sampler_sdf(pts_RS3):
+            S = pts_RS3.shape[1]
+            x_c = object_deform(pts_RS3.reshape(B, P * S, 3), tfs, inverse=True)
+            return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3),
+                                   step).reshape(B * P, S)
 
-    implicit_bf16 = cast_tree(resolved, torch.bfloat16)
-
-    def sampler_sdf(pts_RS3):
-        S = pts_RS3.shape[1]
-        x_c = object_deform(pts_RS3.reshape(B, P * S, 3), tfs, inverse=True)
-        return _bf16_trunk_sdf(implicit_bf16, plans, x_c.reshape(-1, 3), step).reshape(B * P, S)
-
-    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler)
+    return error_bound_z_vals(gen, sampler_sdf, ray_dirs, cam_loc, beta0, plans.sampler,
+                              query_z_fn=query_z, near=near, far=far)

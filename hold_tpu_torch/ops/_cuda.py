@@ -37,10 +37,10 @@ _SIGNATURES = {
     "hold_knn_jinv_fwd": [_P] * 7 + [_I] * 5 + [_P, _P],
     "hold_knn_jinv_bwd": [_P] * 5 + [_I] * 3 + [_P],
     "hold_min_vertex_dist": [_P] * 4 + [_I] * 2 + [_P, _P],
-    "hold_fused_hand_sdf_z": [_P] * 12 + [_I] * 7 + [_P, _P],
-    "hold_fused_object_sdf_z": [_P] * 9 + [_I] * 4 + [_P],
-    "hold_fused_hand_sdf": [_P] * 10 + [_I] * 6 + [_P, _P],
-    "hold_fused_object_sdf": [_P] * 7 + [_I] * 3 + [_P],
+    "hold_fused_hand_sdf_z": [_P] * 12 + [_I] * 8 + [_P, _P],
+    "hold_fused_object_sdf_z": [_P] * 9 + [_I] * 5 + [_P],
+    "hold_fused_hand_sdf": [_P] * 10 + [_I] * 7 + [_P, _P],
+    "hold_fused_object_sdf": [_P] * 7 + [_I] * 4 + [_P],
     "hold_knn_blend": [_P] * 6 + [_I] * 5 + [_F, _I, _P, _P],
     "hold_fused_hand_render": [_P] * 18 + [_I] * 7 + [_P, _P],
     "hold_fused_object_render": [_P] * 14 + [_I] * 4 + [_P],

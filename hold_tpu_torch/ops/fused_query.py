@@ -25,9 +25,13 @@ and the embedding plan is its window alone:
 - ``fused_hand_sampler_sdf`` / ``fused_object_sampler_sdf``: a point buffer
   (B, N, 3) -> sdf (B, N).
 
+Each takes ``relu`` (the JAX package's ``relu=``, ``HOLD_SAMPLER_RELU``):
+the seven hidden layers take relu in place of softplus100, the layer into
+the head keeps softplus100; the kernel's ``query_trunk_kernel<true>``.
+
 A wrapper given CPU tensors runs the plain version.  Given CUDA tensors it
 launches the kernel or raises; it never falls back.  Each launch adds one to
-``LAUNCHES[name]``.
+``LAUNCHES[name]``, a relu launch to ``LAUNCHES[name + ".relu"]``.
 """
 
 from __future__ import annotations
@@ -37,7 +41,15 @@ import math
 import torch
 
 from . import _cuda
-from .knn import JMAX, KMAX, VMAX, check_order, inverse_warp_plain, stats_ptr
+from .knn import (
+    JMAX,
+    KMAX,
+    VMAX,
+    check_order,
+    check_order_length,
+    inverse_warp_plain,
+    stats_ptr,
+)
 from ..models.embedders import barf_alpha, barf_window, fourier_embed
 from ..models.mlp import softplus100
 
@@ -68,12 +80,9 @@ TRUNK_FLOPS_PER_POINT = 2.0 * (W_TOTAL + H)
 # E embedding columns, so E cancels: seven 256x256 products and the head row
 TRUNK_MACS = 7 * H * H + H
 
-LAUNCHES = {
-    "fused_hand_sampler_sdf_z": 0,
-    "fused_object_sampler_sdf_z": 0,
-    "fused_hand_sampler_sdf": 0,
-    "fused_object_sampler_sdf": 0,
-}
+WRAPPERS = ("fused_hand_sampler_sdf_z", "fused_object_sampler_sdf_z", "fused_hand_sampler_sdf",
+            "fused_object_sampler_sdf")
+LAUNCHES = {f"{w}{form}": 0 for w in WRAPPERS for form in ("", ".relu")}
 
 
 def reset_launch_counts() -> None:
@@ -235,18 +244,21 @@ def _lin(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h.float() @ w.float().T + b
 
 
-def sampler_sdf_plain(xc: torch.Tensor, window: torch.Tensor, pack: dict) -> torch.Tensor:
-    """Embedding + bf16 trunk + f32 head at canonical points: (N, 3) -> (N,)."""
+def sampler_sdf_plain(xc: torch.Tensor, window: torch.Tensor, pack: dict,
+                      relu: bool = False) -> torch.Tensor:
+    """Embedding + bf16 trunk + f32 head at canonical points: (N, 3) -> (N,).
+    ``relu``: relu on the seven hidden layers, softplus100 into the head."""
     emb = fourier_embed(xc.float(), _multires(window)) * window
     emb = torch.nn.functional.pad(emb, (0, EMB_PAD - emb.shape[1])).to(torch.bfloat16)
+    act = torch.relu if relu else softplus100
     bias = pack["bias"]
     h = emb
     for l in range(4):
-        h = softplus100(_lin(h, pack[f"W{l}"], bias[l])).to(torch.bfloat16)
+        h = act(_lin(h, pack[f"W{l}"], bias[l])).to(torch.bfloat16)
     h4 = _lin(h, pack["W4h"], bias[4]) + emb.float() @ pack["W4e"].float().T
-    h = softplus100(h4).to(torch.bfloat16)
+    h = act(h4).to(torch.bfloat16)
     for l in (5, 6):
-        h = softplus100(_lin(h, pack[f"W{l}"], bias[l])).to(torch.bfloat16)
+        h = act(_lin(h, pack[f"W{l}"], bias[l])).to(torch.bfloat16)
     h = softplus100(_lin(h, pack["W7"], bias[7]))
     return h @ pack["head_w"] + pack["head_b"]
 
@@ -268,17 +280,18 @@ def rigid_inverse_plain(pts: torch.Tensor, tf_inv12: torch.Tensor) -> torch.Tens
 
 
 @torch.no_grad()
-def hand_query_plain(pts, verts, skin_weights, tfs, window, pack, K: int = 15):
+def hand_query_plain(pts, verts, skin_weights, tfs, window, pack, K: int = 15,
+                     relu: bool = False):
     """Plain version of the hand kernel: pts (B, N, 3) -> sdf (B, N)."""
     xc, _ = inverse_warp_plain(pts, verts, skin_weights, tfs, K=K)
-    return sampler_sdf_plain(xc.reshape(-1, 3), window, pack).reshape(pts.shape[:2])
+    return sampler_sdf_plain(xc.reshape(-1, 3), window, pack, relu).reshape(pts.shape[:2])
 
 
 @torch.no_grad()
-def object_query_plain(pts, tf_inv12, window, pack):
+def object_query_plain(pts, tf_inv12, window, pack, relu: bool = False):
     """Plain version of the object kernel: pts (B, N, 3) -> sdf (B, N)."""
     xc = rigid_inverse_plain(pts, tf_inv12)
-    return sampler_sdf_plain(xc.reshape(-1, 3), window, pack).reshape(pts.shape[:2])
+    return sampler_sdf_plain(xc.reshape(-1, 3), window, pack, relu).reshape(pts.shape[:2])
 
 
 # --------------------------------------------------------------------------
@@ -327,6 +340,10 @@ def _ptr(*ts) -> list:
     return [t.data_ptr() for t in ts]
 
 
+def _count(name: str, relu: bool) -> None:
+    LAUNCHES[name + (".relu" if relu else "")] += 1
+
+
 def _emb_scratch(B: int, n: int, device) -> torch.Tensor:
     """The embedding tiles the warp step hands to the trunk kernel: 16 KB a
     128-point tile of a frame."""
@@ -339,7 +356,7 @@ def _emb_scratch(B: int, n: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def fused_hand_sampler_sdf_z(ray_dirs, cam_loc, z, verts, skin_weights, tfs, window, pack,
-                             K: int = 15, *, order):
+                             K: int = 15, relu: bool = False, *, order):
     """Hand: rays (B*P, 3) x z (B, P, S), MANO frame (verts (B,V,3), skin
     (B,V,J), tfs (B,J,4,4)) -> sdf (B, P, S) f32.  ``order``: the vertices'
     ``knn.tile_order``, which the kernel's search reads them in (the plain
@@ -354,16 +371,18 @@ def fused_hand_sampler_sdf_z(ray_dirs, cam_loc, z, verts, skin_weights, tfs, win
                      *_ptr(ray_dirs, cam_loc, z, verts, skin_weights, tfs), check_order(order, V),
                      *_ptr(window, pack["tiled"], pack["f32"], _emb_scratch(B, P * S, z.device),
                            out),
-                     B, P, S, V, J, K, multires, stats_ptr())
-        LAUNCHES["fused_hand_sampler_sdf_z"] += 1
+                     B, P, S, V, J, K, multires, int(relu), stats_ptr())
+        _count("fused_hand_sampler_sdf_z", relu)
         return out
     _require_cpu(z)
+    check_order_length(order, verts.shape[1])
     return hand_query_plain(points_from_rays_z(ray_dirs, cam_loc, z), verts, skin_weights, tfs,
-                            window, pack, K).reshape(B, P, S)
+                            window, pack, K, relu).reshape(B, P, S)
 
 
 @torch.no_grad()
-def fused_object_sampler_sdf_z(ray_dirs, cam_loc, z, tf_inv12, window, pack):
+def fused_object_sampler_sdf_z(ray_dirs, cam_loc, z, tf_inv12, window, pack,
+                               relu: bool = False):
     """Object: rays (B*P, 3) x z (B, P, S), per-frame inverse affine
     (B, 12: Rinv row-major | t) -> sdf (B, P, S) f32."""
     B, P, S = z.shape
@@ -374,17 +393,18 @@ def fused_object_sampler_sdf_z(ray_dirs, cam_loc, z, tf_inv12, window, pack):
         out = torch.empty((B, P, S), dtype=torch.float32, device=z.device)
         _cuda.launch("hold_fused_object_sdf_z",
                      *_ptr(ray_dirs, cam_loc, z, tf_inv12, window, pack["tiled"], pack["f32"],
-                           _emb_scratch(B, P * S, z.device), out), B, P, S, multires)
-        LAUNCHES["fused_object_sampler_sdf_z"] += 1
+                           _emb_scratch(B, P * S, z.device), out), B, P, S, multires,
+                     int(relu))
+        _count("fused_object_sampler_sdf_z", relu)
         return out
     _require_cpu(z)
     return object_query_plain(points_from_rays_z(ray_dirs, cam_loc, z), tf_inv12, window,
-                              pack).reshape(B, P, S)
+                              pack, relu).reshape(B, P, S)
 
 
 @torch.no_grad()
-def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int = 15, *,
-                           order):
+def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int = 15,
+                           relu: bool = False, *, order):
     """Hand from a point buffer: pts (B, N, 3) -> sdf (B, N) f32."""
     B, N = pts.shape[:2]
     if pts.is_cuda:
@@ -395,15 +415,16 @@ def fused_hand_sampler_sdf(pts, verts, skin_weights, tfs, window, pack, K: int =
         _cuda.launch("hold_fused_hand_sdf",
                      *_ptr(pts, verts, skin_weights, tfs), check_order(order, V),
                      *_ptr(window, pack["tiled"], pack["f32"], _emb_scratch(B, N, pts.device),
-                           out), B, N, V, J, K, multires, stats_ptr())
-        LAUNCHES["fused_hand_sampler_sdf"] += 1
+                           out), B, N, V, J, K, multires, int(relu), stats_ptr())
+        _count("fused_hand_sampler_sdf", relu)
         return out
     _require_cpu(pts)
-    return hand_query_plain(pts, verts, skin_weights, tfs, window, pack, K)
+    check_order_length(order, verts.shape[1])
+    return hand_query_plain(pts, verts, skin_weights, tfs, window, pack, K, relu)
 
 
 @torch.no_grad()
-def fused_object_sampler_sdf(pts, tf_inv12, window, pack):
+def fused_object_sampler_sdf(pts, tf_inv12, window, pack, relu: bool = False):
     """Object from a point buffer: pts (B, N, 3), tf_inv12 (B, 12) -> sdf
     (B, N) f32."""
     B, N = pts.shape[:2]
@@ -414,11 +435,11 @@ def fused_object_sampler_sdf(pts, tf_inv12, window, pack):
         out = torch.empty((B, N), dtype=torch.float32, device=pts.device)
         _cuda.launch("hold_fused_object_sdf",
                      *_ptr(pts, tf_inv12, window, pack["tiled"], pack["f32"],
-                           _emb_scratch(B, N, pts.device), out), B, N, multires)
-        LAUNCHES["fused_object_sampler_sdf"] += 1
+                           _emb_scratch(B, N, pts.device), out), B, N, multires, int(relu))
+        _count("fused_object_sampler_sdf", relu)
         return out
     _require_cpu(pts)
-    return object_query_plain(pts, tf_inv12, window, pack)
+    return object_query_plain(pts, tf_inv12, window, pack, relu)
 
 
 # --------------------------------------------------------------------------

@@ -153,6 +153,15 @@ def check_order(order, V: int):
     return order.data_ptr()
 
 
+def check_order_length(order, V: int) -> None:
+    """Raise when an order is given for another vertex set than the V
+    vertices searched (a strided set ``verts[:, ::n]`` needs its own
+    ``tile_order``).  The plain versions read no order: None passes."""
+    if order is not None and order.shape != (V,):
+        raise ValueError(f"order holds {tuple(order.shape)} entries for {V} vertices: make "
+                         "the order of the vertex set searched (tile_order)")
+
+
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
@@ -484,6 +493,7 @@ def knn_inverse_warp(pts, verts, skin_weights, tfs, K: int = 15,
         )
         return xc, outlier
     _require_cpu(pts)
+    check_order_length(order, verts.shape[1])
     with torch.no_grad():
         return inverse_warp_plain(*args, K=K, max_dist=max_dist)
 

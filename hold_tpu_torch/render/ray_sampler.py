@@ -126,19 +126,24 @@ def error_bound_z_vals(
     beta0,
     cfg: SamplerConfig,
     query_z_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,  # (R,S) -> (R,S)
+    near: torch.Tensor | None = None,  # (R, 1) per-ray near override
+    far: torch.Tensor | None = None,  # (R, 1) per-ray far override
 ) -> torch.Tensor:
     """Final z values per ray: (R, N_samples + 2 + N_samples_extra).
 
     With ``query_z_fn`` every round's query gets the (R, S) z table itself
     (the fused sampler kernels expand ``cam + z*dir`` inside), and the
-    (R, S, 3) point tensor is never built; ``sdf_fn`` is then unused."""
+    (R, S, 3) point tensor is never built; ``sdf_fn`` is then unused.
+    ``near`` / ``far`` replace the scene's interval ray by ray
+    (``node_ray_interval``); by default every ray spans ``cfg.near`` to its
+    exit from the scene sphere."""
     R = ray_dirs.shape[0]
     dev = ray_dirs.device
-    if cfg.inverse_sphere_bg:
-        far = get_sphere_intersections(cam_loc, ray_dirs, r=cfg.scene_bounding_sphere)[:, 1:]
-    else:
-        far = torch.full((R, 1), 2.0 * cfg.scene_bounding_sphere, device=dev)
-    near = torch.full((R, 1), cfg.near, device=dev)
+    if far is None:
+        far = _scene_far(cam_loc, ray_dirs, cfg)
+    if near is None:
+        near = torch.full((R, 1), cfg.near, device=dev)
+    near = near.reshape(-1, 1).expand(R, 1)
 
     z0 = uniform_z_vals(gen, ray_dirs, cam_loc, near, far, cfg.N_samples_eval)
 
@@ -226,6 +231,33 @@ def error_bound_z_vals(
     else:
         z_extra = torch.cat([near, far], dim=-1)
     return torch.sort(torch.cat([z_samples, z_extra], dim=-1), dim=-1)[0]
+
+
+def _scene_far(cam_loc, ray_dirs, cfg: SamplerConfig) -> torch.Tensor:
+    """(R, 1): each ray's exit from the scene sphere, or twice its radius."""
+    if cfg.inverse_sphere_bg:
+        return get_sphere_intersections(cam_loc, ray_dirs, r=cfg.scene_bounding_sphere)[:, 1:]
+    return torch.full((cam_loc.shape[0], 1), 2.0 * cfg.scene_bounding_sphere,
+                      device=cam_loc.device)
+
+
+def node_ray_interval(cam_loc, ray_dirs, center, radius, cfg: SamplerConfig) -> tuple:
+    """Per-ray (near, far), each (R, 1): the ray's segment inside the node's
+    bounding sphere (``center`` (R, 3), ``radius`` (R,) or a scalar), clipped
+    to [cfg.near, the scene exit].  A ray that misses the sphere gets the
+    empty interval at the scene exit: its samples lie far from the node and
+    add no density.  No counterpart in the reference, which samples every
+    node over the whole scene."""
+    scene_far = _scene_far(cam_loc, ray_dirs, cfg)
+    oc = cam_loc - center
+    b = torch.sum(oc * ray_dirs, dim=-1, keepdim=True)
+    r = torch.as_tensor(radius, dtype=cam_loc.dtype, device=cam_loc.device).reshape(-1, 1)
+    disc = b * b - (torch.sum(oc * oc, dim=-1, keepdim=True) - r ** 2)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = torch.minimum(torch.clamp(-b - sq, min=cfg.near), scene_far)
+    t1 = torch.minimum(torch.clamp(-b + sq, min=cfg.near), scene_far)
+    hit = (disc > 0.0) & (t1 > t0)
+    return torch.where(hit, t0, scene_far), torch.where(hit, t1, scene_far)
 
 
 def inverse_sphere_z_vals(u: torch.Tensor | None, num_rays: int, N: int,

@@ -6,22 +6,28 @@ kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
 render + loss + backward grad stage (each node's shade through the fused
 training shade's kernels; ``--no_fused_train`` runs the chunked shade with
 its double backward instead, each chunk recomputed in the backward unless
-``--no_remat``) and one Adam step.  Adam has the
-reference's two learning-rate groups (pose tables at 0.1x lr); the object
-scale stays fixed.  The next batch is drawn on a worker thread while a step
-runs.  Scalars go to ``<log_root>/<exp_key>/metrics.jsonl``
-(``utils/logger.py``).  Every ``--eval_every_epoch``-th epoch and at the end
-the parameters, Adam's state, the step and the model config go to
-``checkpoints/step_<step>.pt`` with ``last.pt`` pointing at it
-(``utils/checkpoint.py``), and, unless ``--no_vis``, one frame is rendered
-(``val/psnr``, ``visuals/val_<frame>_<step>.png``).  A run whose experiment
-already holds a checkpoint resumes from it; ``--load_ckpt`` starts from
-another run's parameters at step 0, ``--load_pose`` takes its pose tables
-and ``--shape_init`` the hands' implicit nets of the newest checkpoint of
+``--no_remat``) and one Adam step.  Adam has the reference's two
+learning-rate groups (pose tables at 0.1x lr) and, for the proposal nets, a
+third at ``model.proposal.lr``; the object scale stays fixed.  The proposal
+nets (on unless ``--no_proposal``) learn the trunk's sdf from the first step
+(``loss/proposal``), and from step ``model.proposal.warmup`` the sampler
+queries them in place of the trunk.  ``--node_bounds``,
+``--sampler_knn_stride N`` and ``--sampler_relu`` are the sampler's knobs
+(``models/holdnet.py build_scene``).  The next batch is drawn on a worker
+thread while a step runs.  Scalars go to
+``<log_root>/<exp_key>/metrics.jsonl`` (``utils/logger.py``).  Every
+``--eval_every_epoch``-th epoch and at the end the parameters, Adam's state,
+the step and the model config go to ``checkpoints/step_<step>.pt`` with
+``last.pt`` pointing at it (``utils/checkpoint.py``), and, unless
+``--no_vis``, one frame is rendered (``val/psnr``,
+``visuals/val_<frame>_<step>.png``).  A run whose experiment already holds a
+checkpoint resumes from it; ``--load_ckpt`` starts from another run's
+parameters at step 0, ``--load_pose`` takes its pose tables and
+``--shape_init`` the hands' implicit nets of the newest checkpoint of
 ``<log_root>/<shape_init>``.  Every third epoch (unless ``--no_meshing``)
 the nodes' canonical meshes are extracted on a worker thread from a copy of
-the parameters, written to ``mesh_cano/mesh_cano_<node>_step_<step>.obj`` and
-``misc/<step>.npy``, and the object's mesh state (its sparse and eikonal
+the parameters, written to ``mesh_cano/mesh_cano_<node>_step_<step>.obj``
+and ``misc/<step>.npy``, and the object's mesh state (its sparse and eikonal
 terms) is adopted at the next step boundary.  ``-f`` shortens the sampler
 (16 / 32 / 8 samples, 2 rounds) and meshes at once.  It runs on the card
 unless asked for the CPU (``--device cpu``, ``device="cpu"``).
@@ -76,12 +82,13 @@ from .render.renderer import make_chunk_renderer, outputs_to_panel, render_frame
 from .utils.checkpoint import (
     latest_checkpoint,
     load_checkpoint,
+    load_optimizer_state,
     load_params_subset,
     save_checkpoint,
     save_misc,
     training_state,
 )
-from .utils.config import parse_args, resolve_device
+from .utils.config import parse_args, resolve_device, sampler_flags
 from .utils.convert import detached_copy, flatten_params
 from .utils.logger import StepTimer, Tracker, make_exp_key
 from .utils.metrics import psnr, psnr_from_mse
@@ -119,22 +126,36 @@ def prefetch_batches(seq, rng: np.random.RandomState, batch_size: int, offset: i
             yield batch
 
 
-def optimizer_for(args, params) -> torch.optim.Adam:
+def optimizer_for(args, params, proposal_lr: float = 1e-3) -> torch.optim.Adam:
     """Adam: pose tables at 0.1x lr (left out with --freeze_pose), every
-    other trainable tensor at lr; obj_scale is not trainable."""
-    main, pose = [], []
+    other trainable tensor at lr; obj_scale is not trainable.  The proposal
+    nets, when the scene has them, are a third group at ``proposal_lr``
+    (``model.proposal.lr``), trained under --freeze_pose too."""
+    main, pose, proposal = [], [], []
     for path, t in flatten_params(params).items():
         if not t.requires_grad:
             continue
-        if "/tables/" in f"/{path}/":
+        keys = path.split("/")
+        if "proposal" in keys:
+            proposal.append(t)
+        elif "tables" in keys:
             if not args.get("freeze_pose", False):
                 pose.append(t)
         else:
             main.append(t)
     lr = float(args.lr)
-    return torch.optim.Adam(
-        [{"params": main, "lr": lr}, {"params": pose, "lr": lr * 0.1}], eps=1e-8
-    )
+    groups = [{"params": main, "lr": lr}, {"params": pose, "lr": lr * 0.1}]
+    if proposal:
+        groups.append({"params": proposal, "lr": float(proposal_lr)})
+    return torch.optim.Adam(groups, eps=1e-8)
+
+
+def proposal_schedule(scene) -> int | None:
+    """The step from which the sampler queries the proposal nets
+    (``model.proposal.warmup``), or None when the scene has none."""
+    if not any(scene.plans[nid].proposal is not None for nid in scene.node_ids):
+        return None
+    return int(scene.opt_model.get("proposal", {}).get("warmup", 1000))
 
 
 def batch_to_device(batch_np: dict, device) -> dict:
@@ -157,8 +178,10 @@ def make_train_step(scene, optimizer, timer: StepTimer | None = None, split=None
     ``parallel.sharding.RaySplit``) ``batch`` is this rank's slice, the
     per-ray draws are sliced from every rank's, the gradients are averaged
     over the ranks before Adam's step and the scalars are the ranks' mean
-    (the psnr that of the mean squared error)."""
+    (the psnr that of the mean squared error).  From the proposal's warmup
+    step on (``proposal_schedule``) the sampler runs in proposal mode."""
     trained = [p for group in optimizer.param_groups for p in group["params"]]
+    warmup = proposal_schedule(scene)
 
     def phase(name, start):
         if timer is not None:
@@ -170,7 +193,8 @@ def make_train_step(scene, optimizer, timer: StepTimer | None = None, split=None
         if split is not None:
             gen = RankDraws(gen, split.rank, split.world, B)
         phase("sampler", True)
-        z_vals = sample_all_z(params, scene, batch, gen, step, epoch)
+        z_vals = sample_all_z(params, scene, batch, gen, step, epoch,
+                              proposal_mode=warmup is not None and step >= warmup)
         phase("sampler", False)
         phase("grad", True)
         draws = sample_step_draws(scene, B, P, gen)
@@ -269,7 +293,7 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
                         fused_sampler=not args.get("no_fused_sampler", False),
                         fused_train=not args.get("no_fused_train", False),
-                        remat=not args.get("no_remat", False))
+                        remat=not args.get("no_remat", False), **sampler_flags(args))
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 
@@ -280,9 +304,11 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     log = tracker.logger
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
     shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_train]
+    warmup = proposal_schedule(scene)
     log.info(f"experiment {tracker.exp_key}: case={args.case} nodes={scene.node_ids} "
              f"frames={seq.n_frames} device={device} fused sampler={fused} "
-             f"fused shade={shade}"
+             f"fused shade={shade} proposal="
+             + ("off" if warmup is None else f"from step {warmup}")
              + (f" ranks={split.world} ({torch.distributed.get_backend()})"
                 if split is not None else ""))
 
@@ -311,10 +337,12 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
         else:
             log.warning(f"--shape_init {args.shape_init}: no checkpoint found")
 
-    optimizer = optimizer_for(args, params)
+    optimizer = optimizer_for(args, params,
+                              float(opt_model.get("proposal", {}).get("lr", 1e-3)))
     if opt_state is not None:
         try:
-            optimizer.load_state_dict(opt_state)
+            # a checkpoint without the proposal's group leaves it fresh
+            load_optimizer_state(optimizer, opt_state)
         except ValueError as e:  # another parameter set: the parameters alone
             log.warning(f"optimizer state not restored ({e}); resuming the parameters only")
     if split is not None:  # every rank loaded the same files; rank 0's state is the run's

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..models.holdnet import build_scene, init_scene_params
+from .config import sampler_flags
 from .convert import flatten_params, map_params
 
 
@@ -102,6 +103,30 @@ def load_checkpoint(path: str, template: dict) -> dict:
     return out
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: dict) -> None:
+    """Load an Adam ``state_dict`` into ``optimizer`` whose parameter groups
+    begin with the saved ones, group for group and tensor for tensor: each
+    saved tensor's state is restored as it was, and the groups the saved
+    state predates (the proposal nets' against a checkpoint written
+    without them) start fresh, as the JAX package keeps the template's
+    init for subtrees a checkpoint lacks.  Raises ValueError when the saved
+    groups are not such a prefix."""
+    cur = optimizer.state_dict()
+    old_groups, new_groups = saved["param_groups"], cur["param_groups"]
+    if len(old_groups) > len(new_groups) or any(
+            len(a["params"]) != len(b["params"]) for a, b in zip(old_groups, new_groups)):
+        raise ValueError(f"saved parameter groups {[len(g['params']) for g in old_groups]} are "
+                         f"no prefix of {[len(g['params']) for g in new_groups]}")
+    state, groups = {}, []
+    for old, new in zip(old_groups, new_groups):
+        for i, j in zip(old["params"], new["params"]):
+            if i in saved["state"]:
+                state[j] = saved["state"][i]
+        groups.append({**old, "params": new["params"]})
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": groups + new_groups[len(old_groups):]})
+
+
 def load_params_subset(path: str, params: dict, predicate) -> dict:
     """Restore only the tensors whose path tuple (the flat path split at
     '/') satisfies ``predicate``: the reference's filtered state-dict loads
@@ -114,8 +139,10 @@ def load_experiment(exp_dir: str, seq, device, fused_render: bool = True,
     """Rebuild the scene of the run in ``exp_dir`` for sequence ``seq`` on
     ``device`` (with the run's sampler and the model config its checkpoint
     holds) and load the checkpoint ``ckpt`` (default: the newest).
-    ``fused_render=False`` gives the chunked render shade.  Returns (params,
-    scene, step)."""
+    ``fused_render=False`` gives the chunked render shade.  The run's
+    proposal and sampler flags build the scene it trained (a run with the
+    proposal on keeps its nets; none of the loaders samples in proposal
+    mode, as in the JAX package).  Returns (params, scene, step)."""
     with open(os.path.join(exp_dir, "args.json")) as f:
         args = json.load(f)
     ckpt = ckpt or latest_checkpoint(exp_dir)
@@ -126,7 +153,7 @@ def load_experiment(exp_dir: str, seq, device, fused_render: bool = True,
     opt_model["scene_bounding_sphere"] = seq.scene_bounding_sphere
     scene = build_scene(opt_model, args, seq.scene_data(), device,
                         fused_sampler=not args.get("no_fused_sampler", False),
-                        fused_render=fused_render)
+                        fused_render=fused_render, **sampler_flags(args))
     params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
     saved = state["params"]
     flat = flatten_params(params)

@@ -103,8 +103,7 @@ DEFAULT_CONFIG: dict = {
         # sampler FLOP diet (no reference counterpart): small canonical-SDF
         # surrogate distilled online from the trunk; replaces the trunk in
         # the error-bound sampler's table-building queries after `warmup`
-        # steps.  Kept equal to the JAX defaults; the port does not have the
-        # surrogate yet and its build_scene refuses a config that enables it.
+        # steps.  --no_proposal turns it off (the JAX HOLD_NO_PROPOSAL=1).
         "proposal": {
             "enabled": True,
             "width": 64,
@@ -154,8 +153,10 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> Cfg:
 def build_argparser() -> argparse.ArgumentParser:
     """Training CLI flags — surface parity with code/src/utils/parser.py:13-70
     and every flag of the JAX package's, with its defaults; the port adds
-    ``--seed``, ``--no_fused_sampler``, ``--no_fused_train``, ``--no_remat``
-    and ``--device``.  The multi-process flags keep the JAX names with the
+    ``--seed``, ``--device`` and, for the JAX package's environment switches,
+    ``--no_fused_sampler``, ``--no_fused_train``, ``--no_remat``,
+    ``--no_proposal``, ``--node_bounds``, ``--sampler_knn_stride`` and
+    ``--sampler_relu``.  The multi-process flags keep the JAX names with the
     port's meaning: ``--num_devices`` local processes, one a card (0: every
     card; with ``--device cpu``, gloo processes on the CPU), or with
     ``--coordinator`` one process of ``--num_processes`` (rank
@@ -203,9 +204,27 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_fused_train", action="store_true")
     # HOLD_NO_REMAT=1: the chunked shade keeps every chunk's graph
     p.add_argument("--no_remat", action="store_true")
+    # the sampler's knobs, off by default as in the JAX package:
+    # HOLD_NO_PROPOSAL=1: no proposal net, the sampler queries the trunk always
+    p.add_argument("--no_proposal", action="store_true")
+    # HOLD_NODE_BOUNDS=1: each node's rays clipped to its bounding sphere
+    p.add_argument("--node_bounds", action="store_true")
+    # HOLD_SAMPLER_KNN_STRIDE=N: the sampler searches every N-th MANO vertex
+    p.add_argument("--sampler_knn_stride", type=int, default=1)
+    # HOLD_SAMPLER_RELU=1: relu hidden layers in the fused sampler query
+    p.add_argument("--sampler_relu", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
     return p
+
+
+def sampler_flags(args) -> dict:
+    """``build_scene``'s proposal and sampler keywords from the flags (absent
+    flags, as in an older run's args.json, are their defaults)."""
+    return {"proposal": not args.get("no_proposal", False),
+            "node_bounds": bool(args.get("node_bounds", False)),
+            "sampler_knn_stride": int(args.get("sampler_knn_stride", 1) or 1),
+            "sampler_relu": bool(args.get("sampler_relu", False))}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -224,9 +243,6 @@ def parse_args(argv=None):
     and logs every step; ``run_training`` also shortens the sampler."""
     args = Cfg(vars(build_argparser().parse_args(argv)))
     cfg = load_config(args.config or None)
-    # the proposal net (sampler surrogate) is not ported yet (ROADMAP Queue 1
-    # item 9): the port's only sampler queries the full trunk
-    cfg["model"]["proposal"]["enabled"] = False
 
     build_dir = os.path.join(args.data_root, args.case, "build")
     data_p = os.path.join(build_dir, "data.npy")

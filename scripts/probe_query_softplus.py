@@ -120,13 +120,13 @@ def main() -> int:
             regs = next((ln.strip() for ln in err.splitlines()
                          if "Used" in ln and "barriers" in ln and "used 16" in ln), "")
             fn = ctypes.CDLL(so).hold_fused_object_sdf_z
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
 
             def run():
                 rc = fn(dirs.data_ptr(), cam.data_ptr(), z.data_ptr(), tf12.data_ptr(),
                         window.data_ptr(), tiled.data_ptr(), pack["f32"].data_ptr(),
-                        emb.data_ptr(), out.data_ptr(), B, P, S, fq._multires(window),
+                        emb.data_ptr(), out.data_ptr(), B, P, S, fq._multires(window), 0,
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")

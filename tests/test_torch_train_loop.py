@@ -173,7 +173,9 @@ def _flags(parser):
 
 def test_cli_has_every_jax_flag_but_multi_host_and_remote():
     jflags, tflags = _flags(jconfig.build_argparser()), _flags(tconfig.build_argparser())
-    port_only = {"--no_fused_sampler", "--no_fused_train", "--no_remat", "--device", "--seed"}
+    # the JAX package's environment switches are the port's flags
+    port_only = {"--no_fused_sampler", "--no_fused_train", "--no_remat", "--device", "--seed",
+                 "--no_proposal", "--node_bounds", "--sampler_knn_stride", "--sampler_relu"}
     assert set(tflags) - port_only == set(jflags) - NOT_PORTED
     for s, a in tflags.items():
         if s in jflags:
@@ -192,4 +194,6 @@ def test_parse_args_matches_jax(fast, tmp_path):
     if fast:
         assert (targs.eval_every_epoch, targs.num_sample, targs.tempo_len, targs.log_every,
                 targs.total_step) == (1, 8, 50, 1, 2000)
-    assert tcfg["model"]["proposal"]["enabled"] is False  # not ported
+    # the proposal net on by default, as in the JAX package
+    assert tcfg["model"]["proposal"] == jcfg["model"]["proposal"]
+    assert tcfg["model"]["proposal"]["enabled"] is True
