@@ -57,6 +57,14 @@ def rodrigues(rot_vecs: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return eye + sin * K + (1.0 - cos) * (K @ K)
 
 
+def blend_shapes(betas: torch.Tensor, shape_disps: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bl,mkl->bmk", betas, shape_disps)
+
+
+def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("bik,ji->bjk", vertices, J_regressor)
+
+
 def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor, parents):
     """Kinematic chain: posed joints (B,J,3) and skinning transforms
     A (B,J,4,4), A_j = [R_chain_j | t_chain_j - R_chain_j j_rest_j]."""
@@ -97,10 +105,8 @@ def lbs_forward(consts: ManoConstants, betas: torch.Tensor,
                 full_pose: torch.Tensor, pose_blend: bool = True) -> LbsOutput:
     B = full_pose.shape[0]
     J = len(consts.parents)
-    v_shaped = consts.v_template[None] + torch.einsum(
-        "bl,mkl->bmk", betas, consts.shapedirs
-    )
-    joints_rest = torch.einsum("bik,ji->bjk", v_shaped, consts.J_regressor)
+    v_shaped = consts.v_template[None] + blend_shapes(betas, consts.shapedirs)
+    joints_rest = vertices2joints(consts.J_regressor, v_shaped)
 
     rot_mats = rodrigues(full_pose.reshape(B, J, 3))
     eye = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device)

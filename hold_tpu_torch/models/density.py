@@ -25,3 +25,7 @@ def laplace_density(params: dict, sdf: torch.Tensor, beta=None,
 
 def abs_density(sdf: torch.Tensor) -> torch.Tensor:
     return torch.abs(sdf)
+
+
+def simple_density(sdf: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(sdf, min=0.0)

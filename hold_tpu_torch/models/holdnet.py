@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..mano.server import build_mano_server
+from ..ops.chunk import DEFAULT_CHUNK
 from ..ops.fused_query import supports_fused_query
 from ..ops.fused_render import supports_fused_render
 from ..ops.knn import tile_order
@@ -100,7 +101,8 @@ def _object_render_opt(opt_model) -> dict:
 def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
                 fused_render: bool = True, fused_train: bool = True,
                 remat: bool = True, proposal: bool = True, node_bounds: bool = False,
-                sampler_knn_stride: int = 1, sampler_relu: bool = False) -> Scene:
+                sampler_knn_stride: int = 1, sampler_relu: bool = False,
+                shade_f32: bool | None = None, shade_chunk: int = DEFAULT_CHUNK) -> Scene:
     """Static scene state on ``device``.  ``fused_sampler=False`` makes every
     node's sampler query the trunk layer by layer (the JAX package's
     ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
@@ -110,7 +112,12 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
     (``HOLD_NO_FUSED_TRAIN=1``); otherwise nodes whose nets the fused kernels
     support use them.  ``remat=False`` makes the chunked shade keep every
     chunk's graph instead of recomputing it in the backward
-    (``HOLD_NO_REMAT=1``).
+    (``HOLD_NO_REMAT=1``).  The chunked shade runs its trunk's and colour
+    net's products in bf16 on the card and in float32 on the CPU, as the JAX
+    package does on its accelerator and off it (``_shade_params``);
+    ``shade_f32=True`` forces float32 (``HOLD_SHADE_F32=1``),
+    ``shade_f32=False`` bf16 on any device.  ``shade_chunk`` is its points a
+    chunk (``HOLD_SHADE_CHUNK``).
 
     Every node gets a proposal net when ``model.proposal.enabled`` and
     ``proposal`` (``proposal=False`` is the JAX ``HOLD_NO_PROPOSAL=1``).  The
@@ -139,6 +146,7 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
     prop_plan = (proposal_net_shapes(prop_cfg) if proposal and prop_cfg.get("enabled", False)
                  else None)
     stride = max(1, int(sampler_knn_stride))
+    shade_bf16 = device.type == "cuda" if shade_f32 is None else not shade_f32
     servers, plans, sub_ops = {}, {}, {}
     for nid in node_ids:
         if nid == "object":
@@ -172,7 +180,8 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
             fused_render=fused_render and supports_fused_render(implicit, rendering),
             fused_train=(fused_train and fused_render
                          and supports_fused_render(implicit, rendering)),
-            remat=remat, proposal=prop_plan, sampler_relu=sampler_relu,
+            remat=remat, shade_bf16=shade_bf16, shade_chunk=int(shade_chunk),
+            proposal=prop_plan, sampler_relu=sampler_relu,
             node_bounds=node_bounds, **orders,
         )
     return Scene(

@@ -23,10 +23,12 @@ canonical field.  Training runs in two stages:
   gradient for the normal, features, color) is the fused training shade
   (``ops/fused_shade.py``: one forward kernel per node, and a backward that
   recomputes it and applies the second-order chain, its J^-1 gradient going
-  on to the Jacobian kernel's backward).  Otherwise it runs in float32,
-  chunked over the points, with the SDF gradient taken with
-  ``create_graph=True`` so the loss differentiates through it, each chunk
-  recomputed in the backward (``NodePlans.remat``).
+  on to the Jacobian kernel's backward).  Otherwise it runs chunked over the
+  points (``NodePlans.shade_chunk`` a chunk), with the SDF gradient taken
+  with ``create_graph=True`` so the loss differentiates through it, each
+  chunk recomputed in the backward (``NodePlans.remat``); with
+  ``NodePlans.shade_bf16`` (the card's default, the JAX package's on its
+  accelerator) the trunk's and the colour net's products run in bfloat16.
 
 Rendering (``*_node_render``, the JAX forwards at ``training=False``) runs
 under ``torch.no_grad()`` at the eval sampler's z table.  By default
@@ -47,7 +49,7 @@ from typing import NamedTuple
 import torch
 
 from ..mano.server import ManoServerState, mano_server_forward
-from ..ops.chunk import map_chunked
+from ..ops.chunk import DEFAULT_CHUNK, map_chunked
 from ..ops.fused_query import (
     embed_window,
     fused_hand_sampler_sdf_z,
@@ -93,6 +95,9 @@ class NodePlans(NamedTuple):
     fused_render: bool = False  # render shade through ops/fused_render.py
     fused_train: bool = False  # grad-stage shade through ops/fused_shade.py
     remat: bool = True  # the chunked shade recomputes each chunk in the backward
+    # the chunked shade's trunk and colour net in bf16 (the JAX _shade_params)
+    shade_bf16: bool = False
+    shade_chunk: int = DEFAULT_CHUNK  # points a chunk of the chunked shade (HOLD_SHADE_CHUNK)
     # the vertex searches' tile orders (ops/knn.py tile_order), int32, hands
     # only: of the MANO vertices and of the subdivided mesh's
     tile_order: torch.Tensor | None = None
@@ -144,14 +149,16 @@ def _semantics(plans: NodePlans, R: int, S: int, device) -> torch.Tensor:
     return sem
 
 
-def _shade_sdf_and_grad(imp, plans, xc, step, create_graph=True):
+def _shade_sdf_and_grad(imp, plans, xc, step, create_graph=True, trunk=None):
     """SDF trunk + width-1 head at ``xc`` and d(sdf)/d(xc), with its graph
-    when ``create_graph`` (the grad stage), else detached (rendering)."""
+    when ``create_graph`` (the grad stage), else detached (rendering).  The
+    trunk runs on ``trunk`` (default ``imp``; a bf16 copy runs it in bf16),
+    the head always on ``imp`` in float32."""
     with torch.enable_grad():
         if not xc.requires_grad:
             xc = xc.detach().requires_grad_(True)
-        h = apply_implicit_trunk(imp, plans.implicit, xc, None, step=step,
-                                 barf_cfg=plans.barf_cfg)
+        h = apply_implicit_trunk(imp if trunk is None else trunk, plans.implicit, xc, None,
+                                 step=step, barf_cfg=plans.barf_cfg)
         sdf = implicit_sdf_from_trunk(imp, h)
         (g,) = torch.autograd.grad(sdf, xc, torch.ones_like(sdf), create_graph=create_graph)
     if not create_graph:
@@ -174,6 +181,13 @@ def _tree_tensors(*trees) -> tuple:
 
 def _normalize(n: torch.Tensor) -> torch.Tensor:
     return n / torch.clamp(safe_norm(n, keepdim=True), min=1e-6)
+
+
+def _shade_params(plans: NodePlans, tree: dict) -> dict:
+    """The chunked shade's copy of a parameter tree: bf16 with
+    ``plans.shade_bf16`` (the JAX ``_shade_params``), else the tree itself.
+    The cast is part of the graph, so the f32 params get f32 gradients."""
+    return cast_tree(tree, torch.bfloat16) if plans.shade_bf16 else tree
 
 
 def _fused_shade(imp, rend, plans, x_c, jinv9, fb0, step):
@@ -242,21 +256,24 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
     jinv9 = jinv9.reshape(-1, 9)
     view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
     # lin_pose once per frame, then broadcast to the frame's points
-    pe_pp = _flat_per_point(_apply_linear(rend["lin_pose"], cond_pose).float(), P * S_f)
+    pe_pp = _flat_per_point(
+        _apply_linear(_shade_params(plans, rend["lin_pose"]), cond_pose).float(), P * S_f)
 
     def shade(xc, pe, vw, jinv):
-        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph)
-        feat = implicit_feat_from_trunk(imp, h)
+        # cast in the chunk: each chunk's gradients reach the params in f32
+        imp_sh, rend_sh = _shade_params(plans, imp), _shade_params(plans, rend)
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph, trunk=imp_sh)
+        feat = implicit_feat_from_trunk(imp_sh, h)
         # n_j = sum_i g_i (J^-1)_ij with J^-1 row-major
         nrm = _normalize(torch.stack(
             [sum(g[:, i] * jinv[:, 3 * i + j] for i in range(3)) for j in range(3)], dim=-1
         ))
-        rgb = apply_rendering_net(rend, plans.rendering, xc, nrm, vw, None, feat,
+        rgb = apply_rendering_net(rend_sh, plans.rendering, xc, nrm, vw, None, feat,
                                   step=step, barf_cfg=plans.barf_cfg, pose_embed=pe)
         return sdf, rgb, nrm
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), pe_pp, view, jinv9),
-                                    B * P * S_f, remat=plans.remat,
+                                    B * P * S_f, chunk=plans.shade_chunk, remat=plans.remat,
                                     closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
@@ -293,17 +310,19 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
     view = -ray_dirs[:, None, :].expand(B * P, S_f, 3).reshape(-1, 3)
 
     def shade(xc, vw, jinv, tc):
-        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph)
-        feat = implicit_feat_from_trunk(imp, h)
+        imp_sh, rend_sh = _shade_params(plans, imp), _shade_params(plans, rend)
+        xc, sdf, h, g = _shade_sdf_and_grad(imp, plans, xc, step, create_graph, trunk=imp_sh)
+        feat = implicit_feat_from_trunk(imp_sh, h)
         nrm = _normalize(torch.einsum("ni,nij->nj", g, jinv))
         rgb = apply_rendering_net(
-            rend, plans.rendering, xc, nrm, vw, None,
+            rend_sh, plans.rendering, xc, nrm, vw, None,
             torch.cat([feat.to(tc.dtype), tc], dim=-1), step=step, barf_cfg=plans.barf_cfg,
         )
         return sdf, rgb, nrm
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N,
-                                    remat=plans.remat, closed=_tree_tensors(imp, rend))
+                                    chunk=plans.shade_chunk, remat=plans.remat,
+                                    closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict

@@ -6,7 +6,8 @@ kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
 render + loss + backward grad stage (each node's shade through the fused
 training shade's kernels; ``--no_fused_train`` runs the chunked shade with
 its double backward instead, each chunk recomputed in the backward unless
-``--no_remat``) and one Adam step.  Adam has the reference's two
+``--no_remat``, its products in bf16 on the card unless ``--shade_f32``,
+``--shade_chunk`` points a chunk) and one Adam step.  Adam has the reference's two
 learning-rate groups (pose tables at 0.1x lr) and, for the proposal nets, a
 third at ``model.proposal.lr``; the object scale stays fixed.  The proposal
 nets (on unless ``--no_proposal``) learn the trunk's sdf from the first step
@@ -88,7 +89,7 @@ from .utils.checkpoint import (
     save_misc,
     training_state,
 )
-from .utils.config import parse_args, resolve_device, sampler_flags
+from .utils.config import parse_args, resolve_device, sampler_flags, shade_flags
 from .utils.convert import detached_copy, flatten_params
 from .utils.logger import StepTimer, Tracker, make_exp_key
 from .utils.metrics import psnr, psnr_from_mse
@@ -293,7 +294,8 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
                         fused_sampler=not args.get("no_fused_sampler", False),
                         fused_train=not args.get("no_fused_train", False),
-                        remat=not args.get("no_remat", False), **sampler_flags(args))
+                        remat=not args.get("no_remat", False), **sampler_flags(args),
+                        **shade_flags(args))
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 

@@ -14,12 +14,29 @@ def safe_norm(v: torch.Tensor, dim: int = -1, keepdim: bool = False,
     return torch.sqrt(torch.sum(v * v, dim=dim, keepdim=keepdim) + eps)
 
 
+def to_homo(x: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 4) with 1 appended."""
+    return torch.cat([x, torch.ones_like(x[..., :1])], dim=-1)
+
+
+def transform_points(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3)."""
+    y = torch.einsum("...ij,...nj->...ni", T, to_homo(x))
+    return y[..., :3] / y[..., 3:4]
+
+
 def rt_to_mat4(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3), (..., 3) -> (..., 4, 4)."""
     top = torch.cat([R, t[..., None]], dim=-1)
     bottom = torch.zeros(R.shape[:-2] + (1, 4), dtype=R.dtype, device=R.device)
     bottom[..., 0, 3] = 1.0
     return torch.cat([top, bottom], dim=-2)
+
+
+def inverse_rigid(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid (no-shear) 4x4."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rt_to_mat4(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))
 
 
 def inverse_mat3(M: torch.Tensor) -> torch.Tensor:

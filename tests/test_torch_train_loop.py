@@ -175,7 +175,8 @@ def test_cli_has_every_jax_flag_but_multi_host_and_remote():
     jflags, tflags = _flags(jconfig.build_argparser()), _flags(tconfig.build_argparser())
     # the JAX package's environment switches are the port's flags
     port_only = {"--no_fused_sampler", "--no_fused_train", "--no_remat", "--device", "--seed",
-                 "--no_proposal", "--node_bounds", "--sampler_knn_stride", "--sampler_relu"}
+                 "--no_proposal", "--node_bounds", "--sampler_knn_stride", "--sampler_relu",
+                 "--shade_f32", "--shade_chunk"}
     assert set(tflags) - port_only == set(jflags) - NOT_PORTED
     for s, a in tflags.items():
         if s in jflags:
