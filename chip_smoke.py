@@ -2513,7 +2513,7 @@ def meshing_checks(torch, seq, args, dev, fused) -> None:
     from hold_tpu_torch.train import (
         batch_to_device, make_train_step, meshing_snapshot, optimizer_for,
     )
-    from hold_tpu_torch.utils.logger import StepTimer
+    from hold_tpu_torch.utils.tracing import StepTimer
 
     params, scene, run_state, tracker = fused
     written = sorted(glob.glob(os.path.join(tracker.log_dir, "mesh_cano", "mesh_cano_*.obj")))
@@ -3722,7 +3722,7 @@ def proposal_run(torch, seq, args, cfg, dev, path: str, rays: int, steps: int, w
     )
     from hold_tpu_torch.utils.config import build_argparser, sampler_flags
     from hold_tpu_torch.utils.convert import flatten_params
-    from hold_tpu_torch.utils.logger import StepTimer
+    from hold_tpu_torch.utils.tracing import StepTimer
 
     knobs = sampler_flags(vars(build_argparser().parse_args(["--case", "synthetic", *flags])))
     opt_model = dict(with_warmup(cfg, warmup)["model"])

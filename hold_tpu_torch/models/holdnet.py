@@ -41,6 +41,7 @@ from ..render.ray_sampler import SamplerConfig, inverse_sphere_z_vals
 from ..render.volsdf import get_camera_rays, merge_factors, volumetric_render
 from ..utils.convert import leaf_params
 from ..utils.mesh import mano_subdivision_operator
+from ..utils.tracing import span
 from .density import init_laplace_density
 from .mlp import (
     apply_implicit_net,
@@ -417,8 +418,9 @@ def sample_all_z(params, scene: Scene, batch, gen, step, epoch,
     out = {}
     for nid in scene.node_ids:
         fn = object_node_sample_z if nid == "object" else mano_node_sample_z
-        out[nid] = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
-                      cam_loc, step, epoch, gen, proposal_mode=proposal_mode)
+        with span(f"hold.sample_z.{nid}"):
+            out[nid] = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
+                          cam_loc, step, epoch, gen, proposal_mode=proposal_mode)
     return out
 
 
@@ -449,35 +451,40 @@ def holdnet_forward(params, scene: Scene, batch, mesh_state, draws, step, epoch,
     factors_list, sample_dicts = [], {}
     for nid in scene.node_ids:
         fn = object_node_forward if nid == "object" else mano_node_forward
-        factors, sd = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
-                         cam_loc, step, epoch, z_vals_dict[nid])
+        with span(f"hold.forward.{nid}"):
+            factors, sd = fn(params[nid], scene.servers[nid], scene.plans[nid], batch,
+                             ray_dirs, cam_loc, step, epoch, z_vals_dict[nid])
         factors_list.append(factors)
         sample_dicts[nid] = sd
 
     for nid in scene.node_ids:
-        if nid == "object":
-            tgt = prepare_loss_targets_object(params[nid], scene, sample_dicts[nid],
-                                              mesh_state, step, draws)
-        else:
-            tgt = prepare_loss_targets_hand(params[nid], scene, nid, sample_dicts[nid],
-                                            step, draws)
-        if "proposal" in params[nid]:
-            tgt.update(proposal_targets(params[nid], scene, nid, sample_dicts[nid], step))
+        with span(f"hold.targets.{nid}"):
+            if nid == "object":
+                tgt = prepare_loss_targets_object(params[nid], scene, sample_dicts[nid],
+                                                  mesh_state, step, draws)
+            else:
+                tgt = prepare_loss_targets_hand(params[nid], scene, nid, sample_dicts[nid],
+                                                step, draws)
+            if "proposal" in params[nid]:
+                tgt.update(proposal_targets(params[nid], scene, nid, sample_dicts[nid], step))
         out.update({f"{nid}.{k}": v for k, v in tgt.items()})
 
-    out.update(volumetric_render(merge_factors(factors_list)))
-    for nid, factors in zip(scene.node_ids, factors_list):
-        f = dict(factors)
-        f["z_max"] = f["z_vals"][:, -1]
-        out.update({f"{nid}.{k}": v for k, v in volumetric_render(f).items()})
+    with span("hold.composite"):
+        out.update(volumetric_render(merge_factors(factors_list)))
+        for nid, factors in zip(scene.node_ids, factors_list):
+            f = dict(factors)
+            f["z_max"] = f["z_vals"][:, -1]
+            out.update({f"{nid}.{k}": v for k, v in volumetric_render(f).items()})
 
     radius = scene.sampler_cfg.scene_bounding_sphere
-    bg_z = inverse_sphere_z_vals(
-        draws["bg_u"], B * P, scene.sampler_cfg.N_samples_inverse_sphere, device=scene.device,
-    ) * (1.0 / radius)
-    frame_idx = batch["frame_idx"][:, None].expand(B, P).reshape(-1)
-    bg = background_forward(params["background"], scene.bg_plans, out["bg_weights"],
-                            ray_dirs, cam_loc, bg_z, frame_idx, radius, step=step)
+    with span("hold.background"):
+        bg_z = inverse_sphere_z_vals(
+            draws["bg_u"], B * P, scene.sampler_cfg.N_samples_inverse_sphere,
+            device=scene.device,
+        ) * (1.0 / radius)
+        frame_idx = batch["frame_idx"][:, None].expand(B, P).reshape(-1)
+        bg = background_forward(params["background"], scene.bg_plans, out["bg_weights"],
+                                ray_dirs, cam_loc, bg_z, frame_idx, radius, step=step)
     out["rgb"] = out["fg_rgb"] + bg["bg_rgb"]
     out["semantics"] = out["fg_semantics"] + bg["bg_semantics"]
     return out
@@ -506,22 +513,25 @@ def holdnet_render(params, scene: Scene, batch, z_vals_dict: dict,
     factors_list = []
     for nid in scene.node_ids:
         fn = object_node_render if nid == "object" else mano_node_render
-        factors, _ = fn(params[nid], scene.servers[nid], scene.plans[nid], batch, ray_dirs,
-                        cam_loc, z_vals_dict[nid], packs.get(nid))
+        with span(f"hold.render.{nid}"):
+            factors, _ = fn(params[nid], scene.servers[nid], scene.plans[nid], batch,
+                            ray_dirs, cam_loc, z_vals_dict[nid], packs.get(nid))
         factors_list.append(factors)
-    out = volumetric_render(merge_factors(factors_list), vis=True)
-    for nid, factors in zip(scene.node_ids, factors_list):
-        f = dict(factors)
-        f["z_max"] = f["z_vals"][:, -1]
-        out.update({f"{nid}.{k}": v for k, v in volumetric_render(f, vis=True).items()})
+    with span("hold.composite"):
+        out = volumetric_render(merge_factors(factors_list), vis=True)
+        for nid, factors in zip(scene.node_ids, factors_list):
+            f = dict(factors)
+            f["z_max"] = f["z_vals"][:, -1]
+            out.update({f"{nid}.{k}": v for k, v in volumetric_render(f, vis=True).items()})
 
     radius = scene.sampler_cfg.scene_bounding_sphere
-    bg_z = inverse_sphere_z_vals(
-        None, B * P, scene.sampler_cfg.N_samples_inverse_sphere, device=scene.device,
-    ) * (1.0 / radius)
-    frame_idx = batch["frame_idx"][:, None].expand(B, P).reshape(-1)
-    bg = background_forward(params["background"], scene.bg_plans, out["bg_weights"],
-                            ray_dirs, cam_loc, bg_z, frame_idx, radius, step=None)
+    with span("hold.background"):
+        bg_z = inverse_sphere_z_vals(
+            None, B * P, scene.sampler_cfg.N_samples_inverse_sphere, device=scene.device,
+        ) * (1.0 / radius)
+        frame_idx = batch["frame_idx"][:, None].expand(B, P).reshape(-1)
+        bg = background_forward(params["background"], scene.bg_plans, out["bg_weights"],
+                                ray_dirs, cam_loc, bg_z, frame_idx, radius, step=None)
     out["rgb"] = out["fg_rgb"] + bg["bg_rgb"]
     out["semantics"] = out["fg_semantics"] + bg["bg_semantics"]
     out["bg_rgb_only"] = bg["bg_rgb_only"]

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..models.holdnet import holdnet_render, render_packs, sample_all_z
+from ..utils.tracing import span, stage
 
 # the maps a chunk keeps, as the JAX chunk renderer does
 _KEEP = ("rgb", "instance_map", "bg_rgb_only", "normal", "depth", "mask_prob", "fg_rgb_vis")
@@ -24,27 +25,20 @@ _KEEP_NODE = ("fg_rgb_vis", "mask_prob", "normal")
 def make_chunk_renderer(scene, timer=None):
     """Returns render_chunk(params, batch, packs=None) -> dict of (P, C)
     device tensors; ``packs`` is ``holdnet.render_packs(params, scene)``,
-    built per chunk when not given.  ``timer`` (a ``utils.logger.StepTimer``,
-    optional) records the 'sampler' and 'shade' phases, synchronising the
-    device at their ends."""
-
-    def phase(name, start):
-        if timer is not None:
-            if scene.device.type == "cuda":
-                torch.cuda.synchronize(scene.device)
-            (timer.start if start else timer.stop)(name)
+    built per chunk when not given.  Its stages are the spans
+    ``hold.sampler`` and ``hold.shade`` (``utils/tracing.py``); ``timer``
+    (a ``utils.tracing.StepTimer``, optional) records them as the phases
+    'sampler' and 'shade', by events on the device's stream."""
 
     @torch.no_grad()
     def render_chunk(params, batch, packs=None):
-        phase("sampler", True)
-        z_vals = sample_all_z(params, scene, batch, None, None, None)
-        phase("sampler", False)
-        phase("shade", True)
-        out = holdnet_render(params, scene, batch, z_vals, packs)
-        keep = {k: out[k] for k in _KEEP}
-        for nid in scene.node_ids:
-            keep.update({f"{nid}.{k}": out[f"{nid}.{k}"] for k in _KEEP_NODE})
-        phase("shade", False)
+        with stage("sampler", timer, scene.device):
+            z_vals = sample_all_z(params, scene, batch, None, None, None)
+        with stage("shade", timer, scene.device):
+            out = holdnet_render(params, scene, batch, z_vals, packs)
+            keep = {k: out[k] for k in _KEEP}
+            for nid in scene.node_ids:
+                keep.update({f"{nid}.{k}": out[f"{nid}.{k}"] for k in _KEEP_NODE})
         return keep
 
     return render_chunk
@@ -60,7 +54,7 @@ def render_frame(params, scene, frame_batch: dict, pixel_per_batch: int = 4096,
     chunk, for its compiled shapes)."""
     if chunk_fn is None:
         chunk_fn = make_chunk_renderer(scene)
-    with torch.no_grad():
+    with torch.no_grad(), span("hold.packs"):
         packs = render_packs(params, scene)
     dev = scene.device
     H, W = frame_batch["img_hw"]
@@ -80,9 +74,10 @@ def render_frame(params, scene, frame_batch: dict, pixel_per_batch: int = 4096,
         for k, v in res.items():
             outs.setdefault(k, []).append(v)
     result = {}
-    for k, chunks in outs.items():
-        flat = torch.cat(chunks, dim=0).cpu().numpy()
-        result[k] = flat.reshape(H, W) if flat.ndim == 1 else flat.reshape(H, W, -1)
+    with span("hold.gather"):
+        for k, chunks in outs.items():
+            flat = torch.cat(chunks, dim=0).cpu().numpy()
+            result[k] = flat.reshape(H, W) if flat.ndim == 1 else flat.reshape(H, W, -1)
     return result
 
 

@@ -44,7 +44,7 @@ from .parallel.sharding import (
 from .render.renderer import make_chunk_renderer, outputs_to_panel, render_frame
 from .utils.checkpoint import load_experiment
 from .utils.config import resolve_device
-from .utils.logger import StepTimer
+from .utils.tracing import StepTimer
 
 # each rank's deadline over several processes: set-up, then a frame at most
 # this long (an H100 renders a 120x160 frame in about half a second)

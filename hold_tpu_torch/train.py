@@ -91,8 +91,9 @@ from .utils.checkpoint import (
 )
 from .utils.config import parse_args, resolve_device, sampler_flags, shade_flags
 from .utils.convert import detached_copy, flatten_params
-from .utils.logger import StepTimer, Tracker, make_exp_key
+from .utils.logger import Tracker, make_exp_key
 from .utils.metrics import psnr, psnr_from_mse
+from .utils.tracing import StepTimer, span, stage
 
 
 # ``-f`` (fast dev run): the sampler's samples a ray and rounds
@@ -167,47 +168,40 @@ def batch_to_device(batch_np: dict, device) -> dict:
     return out
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def make_train_step(scene, optimizer, timer: StepTimer | None = None, split=None):
     """train_step(params, batch, mesh_state, gen, step, epoch) -> aux dict of
-    detached scalars.  ``timer`` (optional) records the 'sampler' and 'grad'
-    phases, synchronising the device at their ends.  With ``split`` (a
-    ``parallel.sharding.RaySplit``) ``batch`` is this rank's slice, the
-    per-ray draws are sliced from every rank's, the gradients are averaged
-    over the ranks before Adam's step and the scalars are the ranks' mean
-    (the psnr that of the mean squared error).  From the proposal's warmup
-    step on (``proposal_schedule``) the sampler runs in proposal mode."""
+    detached scalars.  Its stages are the spans ``hold.sampler`` and
+    ``hold.grad`` (``utils/tracing.py``); ``timer`` (optional) records them
+    as the phases 'sampler' and 'grad', by events on the device's stream.
+    With ``split`` (a ``parallel.sharding.RaySplit``) ``batch`` is this
+    rank's slice, the per-ray draws are sliced from every rank's, the
+    gradients are averaged over the ranks before Adam's step and the scalars
+    are the ranks' mean (the psnr that of the mean squared error).  From the
+    proposal's warmup step on (``proposal_schedule``) the sampler runs in
+    proposal mode."""
     trained = [p for group in optimizer.param_groups for p in group["params"]]
     warmup = proposal_schedule(scene)
-
-    def phase(name, start):
-        if timer is not None:
-            _sync(scene.device)
-            (timer.start if start else timer.stop)(name)
 
     def train_step(params, batch, mesh_state, gen, step: int, epoch: int) -> dict:
         B, P = batch["uv"].shape[:2]
         if split is not None:
             gen = RankDraws(gen, split.rank, split.world, B)
-        phase("sampler", True)
-        z_vals = sample_all_z(params, scene, batch, gen, step, epoch,
-                              proposal_mode=warmup is not None and step >= warmup)
-        phase("sampler", False)
-        phase("grad", True)
-        draws = sample_step_draws(scene, B, P, gen)
-        optimizer.zero_grad(set_to_none=True)
-        out = holdnet_forward(params, scene, batch, mesh_state, draws, step, epoch,
-                              z_vals_dict=z_vals)
-        losses = compute_losses(batch, out, scene.node_ids, step, split)
-        losses["loss"].backward()
-        if split is not None:
-            average_gradients(trained, split)
-        optimizer.step()
-        phase("grad", False)
+        with stage("sampler", timer, scene.device):
+            z_vals = sample_all_z(params, scene, batch, gen, step, epoch,
+                                  proposal_mode=warmup is not None and step >= warmup)
+        with stage("grad", timer, scene.device):
+            draws = sample_step_draws(scene, B, P, gen)
+            optimizer.zero_grad(set_to_none=True)
+            out = holdnet_forward(params, scene, batch, mesh_state, draws, step, epoch,
+                                  z_vals_dict=z_vals)
+            with span("hold.losses"):
+                losses = compute_losses(batch, out, scene.node_ids, step, split)
+            with span("hold.backward"):
+                losses["loss"].backward()
+            if split is not None:
+                average_gradients(trained, split)
+            with span("hold.adam"):
+                optimizer.step()
         aux = {k: v.detach() for k, v in losses.items()}
         if split is None:
             aux["psnr"] = psnr(out["rgb"].detach(), batch["gt_rgb"])

@@ -19,6 +19,8 @@ from typing import Any
 
 import numpy as np
 
+from .tracing import StepTimer  # noqa: F401  (holdbench/entries/train.py imports it here)
+
 
 def make_exp_key() -> str:
     return secrets.token_hex(5)[:9]
@@ -122,24 +124,3 @@ class Tracker:
             self._scalars.close()
         if self.remote is not None:
             self.remote.close()
-
-
-class StepTimer:
-    """Per-phase wall-clock accounting."""
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-        self._start: dict[str, float] = {}
-
-    def start(self, phase: str) -> None:
-        self._start[phase] = time.perf_counter()
-
-    def stop(self, phase: str) -> float:
-        dt = time.perf_counter() - self._start.pop(phase)
-        self.totals[phase] = self.totals.get(phase, 0.0) + dt
-        self.counts[phase] = self.counts.get(phase, 0) + 1
-        return dt
-
-    def summary(self) -> dict[str, float]:
-        return {k: self.totals[k] / max(self.counts[k], 1) for k in sorted(self.totals)}
