@@ -46,7 +46,11 @@ run trains the defaults, the proposal net on with its 1000-step warmup
    100,352 and 200,704 a frame) under the limits derived at each N, the
    plain versions on the call's first frames, the kernels on the whole call
    giving those frames' outputs bit for bit; at 20,480 rays rows 1-6 on
-   the whole call against their plain versions on its first frames.
+   the whole call against their plain versions on its first frames.  Last,
+   the error-bound sampler's kernels (``csrc/error_bound.cu``, no TPU
+   counterpart) on every round of one sampler stage at the render chunk
+   (4,096 rays, the grid) and at 20,480 rays (a generator), each call
+   against the plain steps at its own inputs and timed beside them.
 4. Agreement on a small batch: the sdf the card's sampler read (every call
    of the fused query kernels, at its own inputs) against the plain
    versions on the CPU at the same inputs, and the plain versions on the
@@ -1653,6 +1657,118 @@ def bench_shape_checks(torch, seq, args, cfg, dev, results) -> None:
                              f"version: {failed}")
 
 
+def error_bound_ops(R: int, S: int, ne: int, iters: int) -> float:
+    """Operations of one error-bound step on R rays whose merged table holds
+    S samples: 2 + iters error bounds over S - 1 intervals (the bisection's,
+    and the pdf's pass), ~27 operations an interval each, an exponential
+    counted as one; the sort of the merge, (S log2 S)^2 / 2 comparisons
+    at most, is not counted."""
+    return float(R) * (S - 1) * (iters + 2) * 27.0
+
+
+def error_bound_checks(torch, seq, args, cfg, dev, results) -> None:
+    """Phase 3: the error-bound sampler's two kernels on what one sampler
+    stage hands them, at the render chunk (4,096 rays, no generator, the
+    trunk's fused query) and at 20,480 rays (a seeded generator): every
+    round and final step recorded, the launches counted (4 rounds and 1
+    final a node), each call held against the plain steps on the card at
+    its own inputs (the merged table bit for bit, beta on at most 0.5 % of
+    the rays apart by more than rounding, the samples' 99th percentile of
+    |dz| within 1e-3 scene radii), and both timed by CUDA events, summed
+    over a node's calls."""
+    import numpy as np
+
+    from hold_tpu_torch.models.holdnet import build_scene, init_scene_params, sample_all_z
+    from hold_tpu_torch.ops import error_bound as eb
+    from hold_tpu_torch.render import ray_sampler as rs
+    from hold_tpu_torch.train import batch_to_device
+
+    opt_model = dict(cfg["model"], scene_bounding_sphere=seq.scene_bounding_sphere)
+    scene = build_scene(opt_model, dict(args), seq.scene_data(), dev)
+    params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
+    scfg = scene.sampler_cfg
+    radius = scfg.scene_bounding_sphere
+    step = sum(scene.plans["right"].barf_cfg) // 2
+    failed = []
+    for label, pairs, rays, seed in (("render chunk", 1, 2048, None), ("20480", 5, 2048, 0)):
+        batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(0), pairs, 1, rays),
+                                dev)
+        calls = []
+        real = {"round": rs.error_bound_round, "final": rs.error_bound_final}
+
+        def recording(kind):
+            def fn(*a):
+                calls.append((kind, a))
+                return real[kind](*a)
+            return fn
+
+        rs.error_bound_round, rs.error_bound_final = recording("round"), recording("final")
+        eb.reset_launch_counts()
+        try:
+            with torch.no_grad():
+                gen = None if seed is None else torch.Generator(dev).manual_seed(seed)
+                sample_all_z(params, scene, batch, gen, step, 25)
+        finally:
+            rs.error_bound_round, rs.error_bound_final = real["round"], real["final"]
+        torch.cuda.synchronize()
+        nodes = len(scene.node_ids)
+        want = {"eb_round": nodes * (scfg.max_total_iters - 1), "eb_final": nodes}
+        if eb.LAUNCHES != want:
+            failed.append(f"{label}: launches {eb.LAUNCHES}, expected {want}")
+        per_node = len(calls) // nodes
+        R = calls[0][1][0].shape[0]
+        for n, nid in enumerate(scene.node_ids):
+            mine = calls[n * per_node:(n + 1) * per_node]
+            kernel_ms = plain_ms = bound_ms = 0.0
+            worst_p99, flipped = 0.0, torch.zeros(R, dtype=torch.bool, device=dev)
+            for kind, a in mine:
+                kern = eb.eb_round if kind == "round" else eb.eb_final
+                plain = rs.error_bound_round_plain if kind == "round" else \
+                    rs.error_bound_final_plain
+                got, ref = kern(*a), plain(*a)
+                if kind == "round":
+                    if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                        failed.append(f"{label} {nid}: a round's merge differs")
+                    flipped |= (got[2] - ref[2]).abs() > 1e-5 * ref[2].abs()
+                    got, ref = got[3], ref[3]
+                dz = (got - ref).abs().flatten().double().cpu()
+                worst_p99 = max(worst_p99, float(torch.quantile(dz, 0.99)))
+                if not bool(torch.isfinite(got).all()):
+                    failed.append(f"{label} {nid}: non-finite {kind} output")
+                kernel_ms += cuda_ms(torch, lambda: kern(*a))
+                plain_ms += cuda_ms(torch, lambda: plain(*a))
+                # floats a ray: the table and the new samples in, beta in and
+                # out; a round writes the merged table and its samples, the
+                # last step reads its draws and writes the final set
+                S, ne = a[0].shape[1], 0 if a[2] is None else a[2].shape[1]
+                u = a[6]
+                if kind == "round":
+                    floats = 2 * (S + ne) + 2 + (2 * (S + ne) if ne else 0) + u.shape[-1]
+                else:
+                    idx = a[7]
+                    floats = (2 * (S + ne) + 1 + (u.shape[-1] if u.dim() == 2 else 0)
+                              + u.shape[-1] + 2 + (0 if idx is None else idx.shape[0]))
+                nbytes = 4.0 * R * floats
+                bound_ms += bound(0, error_bound_ops(R, S + ne, ne, scfg.beta_iters),
+                                  nbytes)["bound_ms"]
+            share = float(flipped.float().mean())
+            print(f"  error_bound {label} {nid} (R={R}, {len(mine)} calls): kernel "
+                  f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"(operations); worst p99 |dz| {worst_p99:.3e}, beta apart on "
+                  f"{share:.4%} of the rays", flush=True)
+            if worst_p99 > 1e-3 * radius or share > 5e-3:
+                failed.append(f"{label} {nid}: p99 {worst_p99:.3e}, beta apart {share:.4%}")
+            results[f"error_bound.{'render' if seed is None else 'train'}.{nid}"] = {
+                "max_abs_err": worst_p99, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": "operations", "library_ms": None,
+                "shape": f"R={R} S<={scfg.N_samples_eval * scfg.max_total_iters}",
+                "beta_apart": share}
+        del calls, batch
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"error-bound kernels: {failed}")
+
+
 def whole_call_check(torch, fs, args, sub, gen, dev, label: str) -> list:
     """Row 7's kernels on a whole call (``args``) against the same kernels on
     its first frames (``sub``, what ``shade_case`` holds to the plain
@@ -2061,15 +2177,18 @@ def z_moved(torch, got, ref) -> str:
 @contextlib.contextmanager
 def float32_exponentials(torch):
     """The error-bound sampler's exponentials in float32, as before their
-    float64 repair (phase 4's control)."""
+    float64 repair (phase 4's control): its plain steps on every device
+    (the card's kernels have no float32 form)."""
     from hold_tpu_torch.render import ray_sampler
 
-    real = ray_sampler._exp64
+    real = (ray_sampler._exp64, ray_sampler.error_bound_round, ray_sampler.error_bound_final)
     ray_sampler._exp64 = torch.exp
+    ray_sampler.error_bound_round = ray_sampler.error_bound_round_plain
+    ray_sampler.error_bound_final = ray_sampler.error_bound_final_plain
     try:
         yield
     finally:
-        ray_sampler._exp64 = real
+        ray_sampler._exp64, ray_sampler.error_bound_round, ray_sampler.error_bound_final = real
 
 
 def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 1,
@@ -2631,10 +2750,11 @@ def device_split(torch, prof) -> tuple:
 
 
 def sampler_exponentials_cost(torch, seq, args, scene, params, dev) -> None:
-    """Phase 5, report only: the sampler stage at the slice's batch with its
-    exponentials in float64 (the code as it is) and in float32 (as before
-    the repair): the mean wall of 5 synchronised calls each, alternating,
-    and one call's launches and device time under torch.profiler."""
+    """Phase 5, report only: the sampler stage at the slice's batch as it
+    is (its exponentials in float64, the error-bound kernels) and with its
+    plain steps' exponentials in float32 (as before the repair): the mean
+    wall of 5 synchronised calls each, alternating, and one call's launches
+    and device time under torch.profiler."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -4033,6 +4153,7 @@ def main(argv=None) -> int:
         fast_shape_checks(torch, seq, data_root, dev, results)
         fast_shade_checks(torch, seq, data_root, dev, results)
         bench_shape_checks(torch, seq, args, cfg, dev, results)
+        error_bound_checks(torch, seq, args, cfg, dev, results)
     if want(4):
         card_vs_cpu(torch, seq, data_root, args, cfg, dev)
     if only and only <= {3, 4, 11}:

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "hold_fused_shade_fwd_slabs": [],
     "hold_fused_shade_ws_cols": [_I],
     "hold_fused_shade_bwd_slabs": [],
+    "hold_eb_round": [_P] * 11 + [_I] * 6 + [_F, _F, _P],
+    "hold_eb_final": [_P] * 11 + [_I] * 10 + [_F, _P],
+    "hold_eb_smem_bytes": [_I, _I],
 }
 
 _lock = threading.Lock()

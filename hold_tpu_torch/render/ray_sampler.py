@@ -8,6 +8,10 @@ JAX package does.  Random draws come from a ``torch.Generator``; with
 the JAX functions do with ``rng=None``.  A ``parallel.sharding.RankDraws``
 in its place makes each per-ray draw for the rays of every rank and keeps
 this rank's, so that a ray's samples are those it gets in one process.
+Every draw is made here; between the queries, the rounds' math runs on
+CUDA tensors as ``csrc/error_bound.cu``'s kernels (``ops/error_bound.py``)
+and on the CPU as the plain steps, ``error_bound_round_plain`` and
+``error_bound_final_plain``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops import error_bound
 from ..parallel.sharding import generator_of, ray_rand
 from .volsdf import get_sphere_intersections
 
@@ -117,6 +122,102 @@ def sample_pdf(bins, cdf, u):
     return bins_g0 + (u - cdf_g0) / denom * (bins_g1 - bins_g0)
 
 
+def _bisect(beta, beta0, sdf, dists, d_star, cfg: SamplerConfig):
+    R = sdf.shape[0]
+    conv_beta = beta0.expand(R, 1) if cfg.conv_check == "beta0" else beta[:, None]
+    conv_err = _error_bound(conv_beta, sdf, dists, d_star)
+    beta = torch.where(conv_err <= cfg.eps, beta0, beta)
+    beta_min, beta_max = beta0.expand(R).clone(), beta
+    for _ in range(cfg.beta_iters):
+        beta_mid = 0.5 * (beta_min + beta_max)
+        ok = _error_bound(beta_mid[:, None], sdf, dists, d_star) <= cfg.eps
+        beta_min = torch.where(ok, beta_min, beta_mid)
+        beta_max = torch.where(ok, beta_mid, beta_max)
+    return beta_max
+
+
+def _transmittance_and_free(z_vals, sdf, beta):
+    R, dev = z_vals.shape[0], z_vals.device
+    dists = z_vals[:, 1:] - z_vals[:, :-1]
+    dists_inf = torch.cat([dists, torch.full((R, 1), 1e10, device=dev)], dim=-1)
+    free_energy = dists_inf * _laplace_density_beta(sdf, beta[:, None])
+    shifted = torch.cat([torch.zeros((R, 1), device=dev), free_energy[:, :-1]], dim=-1)
+    return _exp64(-torch.cumsum(shifted, dim=-1)), free_energy, dists_inf
+
+
+def _merge_and_bisect(z_vals, sdf, new, new_sdf, beta, beta0, cfg: SamplerConfig):
+    """What a round and the last step begin with: the previous round's
+    samples ``new`` (R, Ne) and their sdf merged into the sorted table
+    (stably: an old entry first on a tie; None: nothing to merge), d_star,
+    and beta bisected on the table.  -> (z_vals, sdf, d_star, beta)."""
+    if new is not None:
+        z_vals, order = torch.sort(torch.cat([z_vals, new], dim=-1), dim=-1, stable=True)
+        sdf = torch.gather(torch.cat([sdf, new_sdf], dim=-1), 1, order)
+    dists = z_vals[:, 1:] - z_vals[:, :-1]
+    d_star = _d_star(z_vals, sdf)
+    return z_vals, sdf, d_star, _bisect(beta, beta0, sdf, dists, d_star, cfg)
+
+
+def error_bound_round_plain(z_vals, sdf, new, new_sdf, beta, beta0, u, cfg: SamplerConfig):
+    """One refinement round: the previous round's samples ``new`` (R, Ne)
+    and their sdf merged into the sorted table (None: none), beta bisected
+    on it, and the next samples drawn from the bounded opacity at the grid
+    ``u`` (Ne,).  -> (table z, table sdf, beta (R,), samples (R, Ne))."""
+    z_vals, sdf, d_star, beta = _merge_and_bisect(z_vals, sdf, new, new_sdf, beta, beta0, cfg)
+    transmittance, _, dists_inf = _transmittance_and_free(z_vals, sdf, beta)
+    err_per_sec = (
+        _exp64(-d_star / beta[:, None]) * (dists_inf[:, :-1] ** 2)
+        / (4.0 * beta[:, None] ** 2)
+    )
+    err_int = torch.cumsum(err_per_sec, dim=-1)
+    bound_opacity = (torch.clamp(_exp64(err_int), max=1e6) - 1.0) * transmittance[:, :-1]
+    pdf = bound_opacity + cfg.add_tiny
+    pdf = pdf / torch.clamp(torch.sum(pdf, dim=-1, keepdim=True), min=1e-30)
+    cdf = torch.cumsum(pdf, dim=-1)
+    return z_vals, sdf, beta, sample_pdf(z_vals, cdf, u[None].expand(z_vals.shape[0], -1))
+
+
+def error_bound_final_plain(z_vals, sdf, new, new_sdf, beta, beta0, u, idx, near, far,
+                            cfg: SamplerConfig):
+    """The last step: the merge and the bisection of a round, then the final
+    samples drawn from the weights at ``u`` ((R, N) draws or the (N,) grid)
+    with near, far ((R, 1)) and the table's entries at ``idx`` (None: no
+    extras), sorted.  (R, N + 2 + N_samples_extra)."""
+    z_vals, sdf, _, beta = _merge_and_bisect(z_vals, sdf, new, new_sdf, beta, beta0, cfg)
+    transmittance, free_energy, _ = _transmittance_and_free(z_vals, sdf, beta)
+    weights = (1.0 - _exp64(-free_energy)) * transmittance
+
+    pdf = weights[:, :-1] + 1e-5
+    pdf = pdf / torch.sum(pdf, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    R = z_vals.shape[0]
+    z_samples = sample_pdf(z_vals, cdf, u.expand(R, -1))
+    if idx is not None:
+        z_extra = torch.cat([near, far, z_vals[:, idx]], dim=-1)
+    else:
+        z_extra = torch.cat([near, far], dim=-1)
+    return torch.sort(torch.cat([z_samples, z_extra], dim=-1), dim=-1)[0]
+
+
+def error_bound_round(z_vals, sdf, new, new_sdf, beta, beta0, u, cfg: SamplerConfig):
+    """``error_bound_round_plain``: on CUDA tensors one launch of
+    ``csrc/error_bound.cu``'s round kernel, on the CPU the plain steps."""
+    if z_vals.is_cuda:
+        return error_bound.eb_round(z_vals, sdf, new, new_sdf, beta, beta0, u, cfg)
+    return error_bound_round_plain(z_vals, sdf, new, new_sdf, beta, beta0, u, cfg)
+
+
+def error_bound_final(z_vals, sdf, new, new_sdf, beta, beta0, u, idx, near, far,
+                      cfg: SamplerConfig):
+    """``error_bound_final_plain``: on CUDA tensors one launch of the final
+    kernel, on the CPU the plain steps."""
+    if z_vals.is_cuda:
+        return error_bound.eb_final(z_vals, sdf, new, new_sdf, beta, beta0, u, idx, near, far,
+                                    cfg)
+    return error_bound_final_plain(z_vals, sdf, new, new_sdf, beta, beta0, u, idx, near, far,
+                                   cfg)
+
+
 @torch.no_grad()
 def error_bound_z_vals(
     gen: torch.Generator | None,
@@ -136,7 +237,9 @@ def error_bound_z_vals(
     (R, S, 3) point tensor is never built; ``sdf_fn`` is then unused.
     ``near`` / ``far`` replace the scene's interval ray by ray
     (``node_ray_interval``); by default every ray spans ``cfg.near`` to its
-    exit from the scene sphere."""
+    exit from the scene sphere.  Between the queries, each round and the
+    last step are ``error_bound_round`` and ``error_bound_final``; every
+    draw is made here, in the same order on every device."""
     R = ray_dirs.shape[0]
     dev = ray_dirs.device
     if far is None:
@@ -153,7 +256,6 @@ def error_bound_z_vals(
         pts = cam_loc[:, None, :] + z[:, :, None] * ray_dirs[:, None, :]
         return sdf_fn(pts)
 
-    Ne = cfg.N_samples_eval
     z_vals = z0
     sdf = query(z0)
 
@@ -162,75 +264,27 @@ def error_bound_z_vals(
     beta = torch.sqrt(bound)
     beta0 = torch.as_tensor(beta0, dtype=torch.float32, device=dev).reshape(())
 
-    def bisect(beta, sdf, dists, d_star):
-        conv_beta = beta0.expand(R, 1) if cfg.conv_check == "beta0" else beta[:, None]
-        conv_err = _error_bound(conv_beta, sdf, dists, d_star)
-        beta = torch.where(conv_err <= cfg.eps, beta0, beta)
-        beta_min, beta_max = beta0.expand(R).clone(), beta
-        for _ in range(cfg.beta_iters):
-            beta_mid = 0.5 * (beta_min + beta_max)
-            ok = _error_bound(beta_mid[:, None], sdf, dists, d_star) <= cfg.eps
-            beta_min = torch.where(ok, beta_min, beta_mid)
-            beta_max = torch.where(ok, beta_mid, beta_max)
-        return beta_max
-
-    def transmittance_and_free(z_vals, sdf, beta):
-        dists = z_vals[:, 1:] - z_vals[:, :-1]
-        dists_inf = torch.cat([dists, torch.full((R, 1), 1e10, device=dev)], dim=-1)
-        free_energy = dists_inf * _laplace_density_beta(sdf, beta[:, None])
-        shifted = torch.cat([torch.zeros((R, 1), device=dev), free_energy[:, :-1]], dim=-1)
-        return _exp64(-torch.cumsum(shifted, dim=-1)), free_energy, dists_inf
-
+    grid = torch.linspace(0.0, 1.0, cfg.N_samples_eval, device=dev)
+    new = new_sdf = None
     for _ in range(cfg.max_total_iters - 1):
-        dists = z_vals[:, 1:] - z_vals[:, :-1]
-        d_star = _d_star(z_vals, sdf)
-        beta = bisect(beta, sdf, dists, d_star)
+        z_vals, sdf, beta, new = error_bound_round(z_vals, sdf, new, new_sdf, beta, beta0, grid,
+                                                   cfg)
+        new_sdf = query(new)
 
-        transmittance, _, dists_inf = transmittance_and_free(z_vals, sdf, beta)
-        err_per_sec = (
-            _exp64(-d_star / beta[:, None]) * (dists_inf[:, :-1] ** 2)
-            / (4.0 * beta[:, None] ** 2)
-        )
-        err_int = torch.cumsum(err_per_sec, dim=-1)
-        bound_opacity = (torch.clamp(_exp64(err_int), max=1e6) - 1.0) * transmittance[:, :-1]
-        pdf = bound_opacity + cfg.add_tiny
-        pdf = pdf / torch.clamp(torch.sum(pdf, dim=-1, keepdim=True), min=1e-30)
-        cdf = torch.cumsum(pdf, dim=-1)
-
-        u = torch.linspace(0.0, 1.0, Ne, device=dev)[None].expand(R, Ne)
-        new_samples = sample_pdf(z_vals, cdf, u)
-        new_sdf = query(new_samples)
-
-        z_vals, order = torch.sort(torch.cat([z_vals, new_samples], dim=-1), dim=-1, stable=True)
-        sdf = torch.gather(torch.cat([sdf, new_sdf], dim=-1), 1, order)
-
-    # last round: bisect only, then draw the final set from the weights
-    dists = z_vals[:, 1:] - z_vals[:, :-1]
-    d_star = _d_star(z_vals, sdf)
-    beta = bisect(beta, sdf, dists, d_star)
-    transmittance, free_energy, _ = transmittance_and_free(z_vals, sdf, beta)
-    weights = (1.0 - _exp64(-free_energy)) * transmittance
-
-    pdf = weights[:, :-1] + 1e-5
-    pdf = pdf / torch.sum(pdf, dim=-1, keepdim=True)
-    cdf = torch.cumsum(pdf, dim=-1)
+    # the final set's draws
     N = cfg.N_samples
     if gen is not None:
         u = ray_rand(gen, (R, N), dev)
     else:
-        u = torch.linspace(0.0, 1.0, N, device=dev)[None].expand(R, N)
-    z_samples = sample_pdf(z_vals, cdf, u)
-
+        u = torch.linspace(0.0, 1.0, N, device=dev)
+    idx = None
     if cfg.N_samples_extra > 0:
-        M = z_vals.shape[1]
+        M = z_vals.shape[1] + (0 if new is None else new.shape[1])
         if gen is not None:
             idx = torch.randperm(M, generator=generator_of(gen), device=dev)[: cfg.N_samples_extra]
         else:
             idx = torch.linspace(0, M - 1, cfg.N_samples_extra, device=dev).long()
-        z_extra = torch.cat([near, far, z_vals[:, idx]], dim=-1)
-    else:
-        z_extra = torch.cat([near, far], dim=-1)
-    return torch.sort(torch.cat([z_samples, z_extra], dim=-1), dim=-1)[0]
+    return error_bound_final(z_vals, sdf, new, new_sdf, beta, beta0, u, idx, near, far, cfg)
 
 
 def _scene_far(cam_loc, ray_dirs, cfg: SamplerConfig) -> torch.Tensor:

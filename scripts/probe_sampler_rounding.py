@@ -13,7 +13,8 @@ hands its z table and from which it takes the sdf back in its own dtype.
 So two runs differ only by the sampler's own arithmetic and by what the
 sdf makes of the z tables they hand it.
 
-The sampler's plain steps: the cumulative sums (``torch.cumsum``), the
+The sampler's plain steps (on the card too, in place of its kernels,
+``csrc/error_bound.cu``): the cumulative sums (``torch.cumsum``), the
 exponentials (``torch.exp``, ``torch.expm1``) and the inverse-CDF search
 (``sample_pdf``).  Every call of each is recorded, in order (the sampler has
 no data-dependent control flow, so the i-th call is the same step on both
@@ -171,7 +172,9 @@ def sampler_run(inputs, dev, dtype, wide=(), keep_inputs=False):
     torch.set_default_dtype(dtype)
     try:
         with mock.patch.object(rs, "torch", hooked), \
-                mock.patch.object(rs, "sample_pdf", hooked.search):
+                mock.patch.object(rs, "sample_pdf", hooked.search), \
+                mock.patch.object(rs, "error_bound_round", rs.error_bound_round_plain), \
+                mock.patch.object(rs, "error_bound_final", rs.error_bound_final_plain):
             z = rs.error_bound_z_vals(None, sdf_fn, ray_dirs.to(dev, dtype),
                                       cam_loc.to(dev, dtype), beta0, cfg)
     finally:
