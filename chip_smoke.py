@@ -1126,16 +1126,18 @@ def grad_reading(torch, got, ref) -> tuple:
 
 def shade_tail_rows(fs, B: int, N: int, width: int = 64) -> list:
     """Flattened point indices within ``width`` of a place where the
-    backward's work divides: a chunk's first and last points, the blocks
-    that split its sums (colsum_kernel's, and wgrad_kernel's rounded to its
-    pipeline steps), every frame boundary, the last point."""
+    backward's work divides: a chunk's first and last points, the runs of
+    CTAs whose partial column sums fused_shade_bwd_kernel_sums adds in turn,
+    the blocks that split wgrad_kernel's sums (rounded to its pipeline
+    steps), every frame boundary (where the rows kernel cuts the frame bias's
+    sums), the last point."""
     total = B * N
     _, chunks = fs.bwd_chunks(total)
     edges = set(range(0, total + 1, N))
     for c0, rows, splits in chunks:
         per = -(-rows // splits)
-        for step in (per, -(-per // fs.WGRAD_STEP) * fs.WGRAD_STEP):
-            edges.update(range(c0, c0 + rows, step))
+        edges.update(range(c0, c0 + rows, -(-per // fs.WGRAD_STEP) * fs.WGRAD_STEP))
+        edges.update(c0 + a * fs.BWD_ROWS for a, _ in fs.sum_runs(-(-rows // fs.BWD_ROWS)))
         edges.add(c0 + rows)
     return sorted({p for e in edges for p in range(max(0, e - width), min(total, e + width))})
 
@@ -1413,7 +1415,7 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
     # the backward's device time by kernel
     split = kernel_split(torch, "fused_shade_train.bwd",
                          lambda: fs.shade_train_bwd_cuda(*args, *cts),
-                         ("fused_shade_bwd_kernel", "wgrad_kernel", "colsum_kernel"))
+                         ("fused_shade_bwd_kernel_sums", "fused_shade_bwd_kernel", "wgrad_kernel"))
     if split:
         results["fused_shade_train.bwd"]["split_ms"] = split
     if failed:
@@ -2718,9 +2720,9 @@ def meshing_checks(torch, seq, args, dev, fused) -> None:
 # kernel families of the device time: (family, substrings of kernel names)
 FAMILIES = (
     ("fused_shade fwd", ("fused_shade_fwd_kernel",)),
+    ("fused_shade bias sums", ("fused_shade_bwd_kernel_sums",)),
     ("fused_shade bwd rows", ("fused_shade_bwd_kernel",)),
     ("fused_shade wgrad", ("wgrad_kernel",)),
-    ("fused_shade colsum", ("colsum_kernel",)),
     ("fused_render warp", ("render_warp_kernel",)),
     ("fused_render shade", ("render_shade_kernel",)),
     ("fused_query warp", ("query_embed_kernel",)),

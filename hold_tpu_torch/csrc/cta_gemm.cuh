@@ -106,6 +106,31 @@ __device__ __forceinline__ void fence_proxy_async() {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- bulk stores ------------------------------------------------------------
+
+// 2-D tensor store shared -> global (TMA): the box at shared address src to
+// coordinates (c0 innermost, c1) of the tensor map at tmap (a __grid_constant__
+// parameter), in this thread's current bulk async-group
+__device__ __forceinline__ void tensor_store_2d(const void* tmap, uint32_t src, int c0, int c1) {
+    asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+                 ::"l"(tmap), "r"(src), "r"(c0), "r"(c1)
+                 : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups but the newest N have read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// this thread's bulk groups have completed, their writes ordered before this
+// thread's later ordinary loads
+__device__ __forceinline__ void bulk_wait_all() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // barrier among `threads` threads (a multiple of 32) on hardware barrier `id`
 // (1..15; 0 is __syncthreads)
 __device__ __forceinline__ void named_barrier(int id, int threads) {

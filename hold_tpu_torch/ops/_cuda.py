@@ -46,7 +46,8 @@ _SIGNATURES = {
     "hold_fused_object_render": [_P] * 14 + [_I] * 4 + [_P],
     "hold_fused_render_scratch_words": [],
     "hold_fused_shade_fwd": [_P] * 11 + [_I] * 4 + [_P],
-    "hold_fused_shade_bwd": [_P] * 20 + [_I] * 7 + [_P],
+    "hold_fused_shade_bwd": [_P] * 21 + [_I] * 8 + [_P],
+    "hold_fused_shade_part_cols": [_I],
     "hold_fused_shade_fwd_slabs": [],
     "hold_fused_shade_ws_cols": [_I],
     "hold_fused_shade_bwd_slabs": [],

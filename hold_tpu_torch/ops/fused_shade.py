@@ -78,6 +78,7 @@ SHADE_BWD_MACS = 3 * RENDER_MACS
 CHUNK = 32768
 BWD_ROWS = 128  # points a CTA of the backward kernel (csrc/cta_gemm.cuh TILE_M)
 WGRAD_STEP = 64  # points a pipeline stage of the weight-gradient kernel
+SUM_RUNS = 8  # runs of a chunk's CTAs whose partials fused_shade_bwd_kernel_sums adds in turn
 
 # The backward kernel's weight stream: every product's weights as the 32 KB
 # stages its shared-memory ring takes, in the order a CTA consumes them
@@ -343,13 +344,28 @@ def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, slabs=None) -> tupl
 def bwd_chunks(total: int) -> tuple:
     """The backward's split of ``total`` flattened points: the workspace's
     rows (whole CTAs of ``BWD_ROWS`` points) and, per chunk, (first point,
-    points, the blocks of ~2048 points each sum over them is split into)."""
+    points, the blocks of ~2048 points each weight-gradient sum over them is
+    split into)."""
     cap = -(-min(total, CHUNK) // BWD_ROWS) * BWD_ROWS
     chunks = []
     for c0 in range(0, total, cap):
         rows = min(cap, total - c0)
         chunks.append((c0, rows, max(1, min(32, rows // 2048))))
     return cap, chunks
+
+
+def frame_slots(B: int, N: int) -> int:
+    """Frames that the points of one backward CTA can touch: the frame-bias
+    slots of its partial row."""
+    return min(B, (BWD_ROWS - 1) // N + 2)
+
+
+def sum_runs(n: int) -> list:
+    """``fused_shade_bwd_kernel_sums``' split of ``n`` CTAs (a chunk's, or
+    those that hold a frame's points): ``SUM_RUNS`` runs [a, b) of ceil(n /
+    SUM_RUNS), each summed in CTA order, then the runs in order."""
+    per = -(-n // SUM_RUNS)
+    return [(min(n, r * per), min(n, (r + 1) * per)) for r in range(SUM_RUNS)]
 
 
 def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm,
@@ -369,8 +385,11 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
     if slabs.numel() != lib.hold_fused_shade_bwd_slabs() * SLAB:
         raise RuntimeError("the backward's weight stream differs from the kernel's")
     cap, chunks = bwd_chunks(B * N)
+    kmax = frame_slots(B, N)
     wsb = torch.empty(cap * lib.hold_fused_shade_ws_cols(0), dtype=torch.bfloat16, device=dev)
     wsf = torch.empty(cap * lib.hold_fused_shade_ws_cols(1), dtype=torch.float32, device=dev)
+    part = torch.empty(cap // BWD_ROWS * lib.hold_fused_shade_part_cols(kmax),
+                       dtype=torch.float32, device=dev)
     grads = {"xc": torch.empty((B, N, 3), device=dev), "jinv9": torch.empty((B, N, 9), device=dev),
              "fb0": torch.zeros((B, H), device=dev), "tw_b": torch.zeros(W_TOTAL, device=dev),
              "tw_f": torch.zeros(F_TOTAL, device=dev), "bw_b": torch.zeros(T_TOTAL, device=dev),
@@ -380,8 +399,8 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
                      *_ptr(xc, jinv9, fb0, window, g_sdf, g_rgb, g_nrm, tw["f32"], cw["f32"],
                            slabs, wsb, wsf, grads["xc"], grads["jinv9"], grads["tw_b"],
                            grads["tw_f"], grads["bw_b"], grads["cw_b"], grads["cw_f"],
-                           grads["fb0"]),
-                     B * N, N, c0, rows, cap, multires, splits)
+                           grads["fb0"], part),
+                     B * N, N, c0, rows, cap, multires, splits, kmax)
         LAUNCHES["fused_shade_train.bwd"] += 1
     return grads
 

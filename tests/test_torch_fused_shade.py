@@ -19,6 +19,8 @@ kernel to.  Checked:
 - a padded N (131) equals its prefix; the MAC counts of the bound; the
   frame-bias gradient's rounding noise, which chip_smoke.py reads on the
   card too;
+- the backward's column-sum plan: each CTA's frame pieces, the runs of
+  CTAs, and their fixed-order plain mirrors against torch.sum;
 - the kernels' weight streams: the backward's layout, and the forward's as
   its first 82 stages, un-swizzled back to the packs;
 - the slice: one grad step of a full-width toy scene with the fused shade
@@ -27,7 +29,8 @@ kernel to.  Checked:
   ``--no_fused_render`` never run the fused shade.
 
 The CUDA kernels are held against the plain versions on the card (marked
-``gpu``; skipped without one).
+``gpu``; skipped without one), the backward in
+tests/test_torch_fused_shade_cuda.py, which imports no JAX.
 """
 
 import contextlib
@@ -266,6 +269,136 @@ def test_bwd_chunks_cover_every_point_once(total):
         per = -(-(-(-rows // splits)) // fs.WGRAD_STEP) * fs.WGRAD_STEP
         assert per * splits >= rows
     assert (seen == 1).all()
+
+
+def _frame_pieces(c0: int, rows: int, N: int) -> list:
+    """Per CTA of the chunk of points c0 .. c0 + rows - 1, the (frame, first
+    point, end point) pieces that its frame-bias slots sum, in row order: its
+    points cut at every frame boundary that falls inside it."""
+    out = []
+    for p0 in range(c0, c0 + rows, fs.BWD_ROWS):
+        p1, pieces, p = min(p0 + fs.BWD_ROWS, c0 + rows), [], p0
+        while p < p1:
+            end = min(p1, (p // N + 1) * N)
+            pieces.append((p // N, p, end))
+            p = end
+        out.append(pieces)
+    return out
+
+
+def _butterfly_order(rows16: torch.Tensor) -> torch.Tensor:
+    """A warp's 16 rows (16, C) summed per column as the rows kernel's
+    shuffles do: rows g and g + 8 in the lane, then lane bits 4, 3, 2; the
+    column's owner lane is 2 (c % 32 // 8) + c % 2."""
+    s = rows16[:8] + rows16[8:]  # lane g's pair sums
+    lanes = torch.arange(8)
+    owner = (torch.arange(s.shape[1]) % 32 // 8) * 2 + torch.arange(s.shape[1]) % 2
+    w = s + s[lanes ^ 4]
+    x = w + w[lanes ^ 2]
+    y = x + x[lanes ^ 1]
+    return y.gather(0, owner[None])[0]
+
+
+@torch.no_grad()
+def _column_sums_fixed_order(vals: torch.Tensor, from_tile: bool) -> torch.Tensor:
+    """The backward's column sums of f32 rows ``vals`` (R, C) over every
+    point, in the kernels' order, chunk by chunk: per CTA the warps'
+    butterflies then the warps in order (the a_bar and head rows), or the 128
+    rows in order (``from_tile``: the colour deltas); then ``fs.sum_runs`` over
+    the chunk's CTAs: the order the kernels are written to add in."""
+    R, C = vals.shape
+    out = torch.zeros(C, dtype=torch.float32)
+    for c0, rows, _ in fs.bwd_chunks(R)[1]:
+        parts = []
+        for p0 in range(c0, c0 + rows, fs.BWD_ROWS):
+            tile = torch.zeros((fs.BWD_ROWS, C), dtype=torch.float32)
+            tile[:min(fs.BWD_ROWS, c0 + rows - p0)] = vals[p0:p0 + fs.BWD_ROWS].float()
+            acc = torch.zeros(C, dtype=torch.float32)
+            if from_tile:
+                for r in range(fs.BWD_ROWS):
+                    acc = acc + tile[r]
+            else:
+                for w in range(fs.BWD_ROWS // 16):
+                    acc = acc + _butterfly_order(tile[16 * w:16 * w + 16])
+            parts.append(acc)
+        tot = torch.zeros(C, dtype=torch.float32)
+        for a, b in fs.sum_runs(len(parts)):
+            run = torch.zeros(C, dtype=torch.float32)
+            for j in range(a, b):
+                run = run + parts[j]
+            tot = tot + run
+        out = out + tot
+    return out
+
+
+@torch.no_grad()
+def _frame_sums_fixed_order(vals: torch.Tensor, N: int) -> torch.Tensor:
+    """The frame bias's sums of ``vals`` (R, C) per frame of N points, in the
+    kernels' order: each CTA's pieces (``_frame_pieces``) in row order, then
+    ``fs.sum_runs`` over the chunk's CTAs that hold the frame, added chunk by
+    chunk."""
+    R, C = vals.shape
+    out = torch.zeros((-(-R // N), C), dtype=torch.float32)
+    for c0, rows, _ in fs.bwd_chunks(R)[1]:
+        slots = {}
+        for j, pieces in enumerate(_frame_pieces(c0, rows, N)):
+            for f, a, b in pieces:
+                acc = torch.zeros(C, dtype=torch.float32)
+                for p in range(a, b):
+                    acc = acc + vals[p].float()
+                slots.setdefault(f, []).append(acc)
+        for f, parts in slots.items():
+            tot = torch.zeros(C, dtype=torch.float32)
+            for a, b in fs.sum_runs(len(parts)):
+                run = torch.zeros(C, dtype=torch.float32)
+                for j in range(a, b):
+                    run = run + parts[j]
+                tot = tot + run
+            out[f] = out[f] + tot
+    return out
+
+
+@pytest.mark.parametrize("b,n", [(3, 200), (2, 129), (5, 40), (2, 20_000)])
+def test_bias_sum_plan(b, n):
+    """The backward's column sums as the kernels take them: each CTA's frame
+    pieces cover its points once, cut exactly at the frame boundaries inside
+    it, within ``frame_slots`` slots; ``sum_runs`` covers a chunk's CTAs in
+    order; the plain fixed-order mirrors (the warps' butterflies, the tile's
+    rows, the frames' pieces) equal torch.sum over the same rows.  (3, 200)
+    has CTAs straddling both frame boundaries, (5, 40) CTAs over four frames,
+    (2, 20,000) two chunks."""
+    total = b * n
+    _, chunks = fs.bwd_chunks(total)
+    seen = np.zeros(total, np.int64)
+    straddle = 0
+    for c0, rows, _ in chunks:
+        plan = _frame_pieces(c0, rows, n)
+        assert len(plan) == -(-rows // fs.BWD_ROWS)
+        for j, pieces in enumerate(plan):
+            p0 = c0 + j * fs.BWD_ROWS
+            assert pieces[0][1] == p0 and pieces[-1][2] == min(p0 + fs.BWD_ROWS, c0 + rows)
+            assert 1 <= len(pieces) <= fs.frame_slots(b, n)
+            straddle += len(pieces) > 1
+            for (f, a, e), nxt in zip(pieces, pieces[1:] + [None]):
+                assert a < e and a // n == f and (e - 1) // n == f
+                seen[a:e] += 1
+                if nxt is not None:
+                    assert e == nxt[1] and e % n == 0 and nxt[0] == f + 1
+        runs = fs.sum_runs(len(plan))
+        assert len(runs) == fs.SUM_RUNS and runs[0][0] == 0 and runs[-1][1] == len(plan)
+        assert all(a <= e and e == a2 for (a, e), (a2, _) in zip(runs, runs[1:]))
+    assert (seen == 1).all()
+    if n % fs.BWD_ROWS:
+        assert straddle > 0
+    rng = np.random.RandomState(n)
+    vals = torch.tensor(rng.randn(total, 256).astype(np.float32))
+    want = vals.double().sum(0)
+    for from_tile in (False, True):
+        got = _column_sums_fixed_order(vals, from_tile)
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=2e-4)
+    got = _frame_sums_fixed_order(vals, n)
+    want = vals.double().view(b, n, 256).sum(1)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=2e-4)
 
 
 def test_backward_weight_stream_layout(case):
