@@ -11,6 +11,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device_constants import constant
 from .model_data import TIP_VERTEX_IDS, ManoModelData
 
 
@@ -69,7 +70,7 @@ def batch_rigid_transform(rot_mats: torch.Tensor, joints: torch.Tensor, parents)
     """Kinematic chain: posed joints (B,J,3) and skinning transforms
     A (B,J,4,4), A_j = [R_chain_j | t_chain_j - R_chain_j j_rest_j]."""
     B, J = joints.shape[:2]
-    parent_idx = list(parents[1:])
+    parent_idx = constant(parents[1:], torch.long, joints.device)
     rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parent_idx]], dim=1)
     top = torch.cat([rot_mats, rel[..., None]], dim=-1)  # (B,J,3,4)
     bottom = torch.zeros((B, J, 1, 4), dtype=joints.dtype, device=joints.device)
@@ -120,7 +121,7 @@ def lbs_forward(consts: ManoConstants, betas: torch.Tensor,
     W = consts.lbs_weights[None].expand((B,) + consts.lbs_weights.shape)
     T = torch.einsum("bvj,bjmn->bvmn", W, A)
     verts = torch.einsum("bvmn,bvn->bvm", T[:, :, :3, :3], v_posed) + T[:, :, :3, 3]
-    tips = verts[:, torch.as_tensor(TIP_VERTEX_IDS, device=verts.device)]
+    tips = verts[:, constant(TIP_VERTEX_IDS, None, verts.device)]
     joints21 = torch.cat([posed_joints, tips], dim=1)
     return LbsOutput(verts, joints21, A, W, v_posed)
 

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from ..utils.device_constants import cached, device_of, to_device
+
 
 def embed_dim(input_dims: int, num_freq: int, include_input: bool = True) -> int:
     return input_dims * (2 * num_freq + (1 if include_input else 0))
@@ -51,16 +53,34 @@ def barf_window(alpha: float, num_freq: int, input_dims: int = 3) -> torch.Tenso
                       torch.repeat_interleave(barf_weights(alpha, num_freq), 2 * input_dims)])
 
 
+def window_on(alpha: float | None, num_freq: int, input_dims: int, device,
+              dtype=torch.float32, include_input: bool = True) -> torch.Tensor:
+    """``barf_window(alpha, num_freq, input_dims)`` (ones where ``alpha`` is
+    None), without its first ``input_dims`` columns unless
+    ``include_input``, as ``dtype`` on ``device``: computed on the host as
+    ever, sent without a stream sync and kept per arguments
+    (``utils/device_constants.py``), so that every use of one step's window
+    shares one copy."""
+    dev = device_of(device)
+
+    def make():
+        if alpha is None:
+            win = torch.ones(embed_dim(input_dims, num_freq))
+        else:
+            win = barf_window(alpha, num_freq, input_dims)
+        if not include_input:
+            win = win[input_dims:]
+        return to_device(win.to(dtype), dev)
+
+    return cached(("window", alpha, num_freq, input_dims, include_input, dtype, dev), make)
+
+
 def barf_embed(x: torch.Tensor, num_freq: int, alpha: float | None,
                include_input: bool = True) -> torch.Tensor:
     enc = fourier_embed(x, num_freq, include_input=include_input)
     if alpha is None:
         return enc
-    D = x.shape[-1]
-    w_blocks = barf_window(alpha, num_freq, D)
-    if not include_input:
-        w_blocks = w_blocks[D:]
-    return enc * w_blocks.to(device=x.device, dtype=x.dtype)
+    return enc * window_on(alpha, num_freq, x.shape[-1], x.device, x.dtype, include_input)
 
 
 def make_embedder(mode: str, num_freq: int, barf_s: int = 0, barf_e: int = 1):

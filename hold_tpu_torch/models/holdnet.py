@@ -375,7 +375,7 @@ def prepare_loss_targets_hand(nparams, scene: Scene, nid: str, sample_dict: dict
         ),
         # the reference activates these targets once its canonical mesh
         # exists (step 200)
-        "active": torch.tensor(float(step >= 200), device=scene.device),
+        "active": torch.full((), float(step >= 200), device=scene.device),
     }
 
 

@@ -7,6 +7,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.device_constants import constant
 from ..utils.rot import axis_angle_to_matrix
 from ..utils.transforms import inverse_affine4
 
@@ -43,7 +44,7 @@ def object_server_forward(state: ObjectServerState, scene_scale,
     o_scale = state.obj_scale if obj_scale is None else obj_scale
 
     R = axis_angle_to_matrix(rot_aa)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(B, 1, 4)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), torch.get_default_dtype(), dev).expand(B, 1, 4)
     rigid = torch.cat([torch.cat([R, transl.reshape(B, 3, 1)], dim=-1), bottom], dim=-2)
     ones = torch.ones((B,), device=dev)
     scale_mat = torch.diag_embed(torch.stack([s, s, s, ones], dim=-1))

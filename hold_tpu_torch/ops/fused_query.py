@@ -50,7 +50,7 @@ from .knn import (
     inverse_warp_plain,
     stats_ptr,
 )
-from ..models.embedders import barf_alpha, barf_window, fourier_embed
+from ..models.embedders import barf_alpha, fourier_embed, window_on
 from ..models.mlp import softplus100
 
 H = 256  # trunk width
@@ -219,13 +219,13 @@ def _kernel_weights(pack: dict) -> torch.Tensor:
 
 def embed_window(plan: dict, step, barf_cfg, device=None) -> torch.Tensor:
     """(E,) f32 embedding window: ones, or the BARF window at ``step`` for a
-    ``barf`` node (the JAX package's ``_fused_embed_plan`` column 3)."""
+    ``barf`` node (the JAX package's ``_fused_embed_plan`` column 3); kept on
+    ``device`` per window (``embedders.window_on``): no stream sync."""
     L = plan["multires"]
+    alpha = None
     if plan["embedding"] == "barf" and step is not None:
-        win = barf_window(barf_alpha(step, L, *barf_cfg), L)
-    else:
-        win = torch.ones(_emb_width(L))
-    return win.to(device=device, dtype=torch.float32)
+        alpha = barf_alpha(step, L, *barf_cfg)
+    return window_on(alpha, L, 3, device)
 
 
 # --------------------------------------------------------------------------

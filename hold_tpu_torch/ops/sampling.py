@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.device_constants import constant
+
 # empirical canonical-hand box half-extents for the uniform samples
 HAND_GLOBAL_SIGMA_XYZ = (0.15, 0.06, 0.12)
 
@@ -21,7 +23,10 @@ def point_in_space_sample(pc_input: torch.Tensor, local_sigma: float, global_sig
     pc_input (B,N,3); noise (B,N,3) standard normal; glob_u (B,G,3) in [0,1)
     with G = int(N * global_ratio).  -> (B, N + G, 3)."""
     local = pc_input + noise * local_sigma
-    g = torch.as_tensor(global_sigma_xyz, dtype=pc_input.dtype, device=pc_input.device)
+    if torch.is_tensor(global_sigma_xyz):
+        g = global_sigma_xyz.to(dtype=pc_input.dtype, device=pc_input.device)
+    else:
+        g = constant(global_sigma_xyz, pc_input.dtype, pc_input.device)
     glob = glob_u * (2.0 * g) - g
     return torch.cat([local, glob], dim=1)
 

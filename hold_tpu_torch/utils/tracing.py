@@ -20,23 +20,75 @@ span of the port is named ``hold.<...>``:
 given a ``StepTimer``, times the phase ``name``: on a CUDA device by two
 events marked on its current stream, read back when the timer is read, so
 that timing a stage never waits for the device.
+
+``CONSTANTS`` counts the host-built constants that
+``utils/device_constants.py`` puts on a device: ``copied`` for each one
+made and sent, ``hits`` for each reuse of one already there.  While a
+profiler records, ``CONSTANTS_BY_SPAN[(span, kind)]`` counts them by the
+innermost port span open on the thread that opened it (``no span``
+outside every one).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import torch
 
 _OFF = contextlib.nullcontext()
+_OPEN = threading.local()  # .names: the port spans open on this thread, innermost last
+
+CONSTANTS = {"copied": 0, "hits": 0}
+CONSTANTS_BY_SPAN: dict = {}
+
+
+def reset_constant_counts() -> None:
+    for k in CONSTANTS:
+        CONSTANTS[k] = 0
+    CONSTANTS_BY_SPAN.clear()
+
+
+def count_constant(kind: str) -> None:
+    """One more ``kind`` (``copied`` or ``hits``) in ``CONSTANTS``, and in
+    ``CONSTANTS_BY_SPAN`` under the innermost open span while a profiler
+    records."""
+    CONSTANTS[kind] += 1
+    if torch.autograd._profiler_enabled():
+        names = getattr(_OPEN, "names", None)
+        key = (names[-1] if names else "no span", kind)
+        CONSTANTS_BY_SPAN[key] = CONSTANTS_BY_SPAN.get(key, 0) + 1
+
+
+class _Span:
+    """A ``record_function`` range that also keeps its name on the thread's
+    stack of open spans while it is open."""
+
+    __slots__ = ("name", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        names = getattr(_OPEN, "names", None)
+        if names is None:
+            names = _OPEN.names = []
+        names.append(self.name)
+        return self
+
+    def __exit__(self, *exc):
+        _OPEN.names.pop()
+        return self.rf.__exit__(*exc)
 
 
 def span(name: str):
     """A ``record_function`` range named ``name`` while a profiler records,
     else the shared no-op context."""
     if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
+        return _Span(name)
     return _OFF
 
 

@@ -12,13 +12,19 @@ own name (each node's span, ``hold.packs``, ``hold.gather``, the
 benchmark's ``step``, ``chunk``, ...).  The run's result line comes first,
 as ever; then one JSON line: the window's launches, busy and idle ms a step
 or frame, each stage's and each span's, the stages' shares of the window's,
-the ``hold.*`` spans a step or frame, and the device operations that had no
-launch event, by name.
+the ``hold.*`` spans a step or frame, the device operations that had no
+launch event, by name, and, a step or frame by span (``syncs``): the host's
+``cuda*Synchronize`` runtime calls, the host-to-device copies from pageable
+and from pinned memory (by the span open at their launch), and the port's
+host-built constants ``copied`` and ``hits``
+(``hold_tpu_torch/utils/tracing.py::CONSTANTS_BY_SPAN``; none in a checkout
+without it); ``sync_stages`` sums them by stage.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 from pathlib import Path
@@ -29,6 +35,75 @@ ROOT = Path(__file__).resolve().parents[1]
 def per(split: dict, n: int) -> dict:
     return {k: {"launches": v["launches"] / n, "busy_ms": v["busy_s"] * 1e3 / n,
                 "idle_ms": v["idle_s"] * 1e3 / n} for k, v in split.items()}
+
+
+def syncs_by_span(tr: dict, constants: dict | None) -> dict:
+    """Counts inside the traced window by the innermost span open at their
+    host time: ``cuda*Synchronize`` runtime calls, ``HtoD pageable`` and
+    ``HtoD pinned`` copies (at their launch), and ``constants`` (the port's
+    ``(span, kind)`` counts, if given)."""
+    from holdbench import stages
+
+    ev = [e for e in tr.get("traceEvents", []) if e.get("ph") == "X"]
+    windows = [e for e in ev if e.get("name") == "window"]
+    if not windows:
+        return {}
+    w0 = min(e["ts"] for e in windows)
+    w1 = max(e["ts"] + e["dur"] for e in windows)
+    spans = sorted(((e["ts"], e["ts"] + e["dur"], e["name"]) for e in ev
+                    if e.get("cat") == "user_annotation" and e["name"] != "window"),
+                   key=lambda x: (x[0], -x[1]))
+    starts = [a for a, _, _ in spans]
+
+    def span_at(t) -> str:
+        for i in range(bisect.bisect_right(starts, t) - 1, -1, -1):
+            if t < spans[i][1]:
+                return spans[i][2]
+        return "no span"
+
+    out: dict = {}
+
+    def add(name: str, kind: str, n=1) -> None:
+        k = out.setdefault(name, {})
+        k[kind] = k.get(kind, 0) + n
+
+    launched = {e["args"]["correlation"]: e["ts"] for e in ev
+                if e.get("cat") in stages.HOST_CATS and "correlation" in e.get("args", {})}
+    for e in ev:
+        if not w0 <= e["ts"] < w1:
+            continue
+        if e.get("cat") in stages.HOST_CATS and "Synchronize" in e["name"]:
+            add(span_at(e["ts"]), e["name"])
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]:
+            t = launched.get(e.get("args", {}).get("correlation"))
+            kind = "HtoD pageable" if "Pageable" in e["name"] else "HtoD pinned"
+            add("no launch event" if t is None else span_at(t), kind)
+    for (name, kind), n in (constants or {}).items():
+        add(name, kind, n)
+    return out
+
+
+def count_syncs(tr: dict, kind: str, n: int) -> dict:
+    """``syncs_by_span`` a step or frame, with the port's constant counts
+    where the checkout keeps them, and the same summed by stage."""
+    from holdbench import stages
+
+    try:
+        from hold_tpu_torch.utils import tracing
+        CONSTANTS_BY_SPAN = dict(tracing.CONSTANTS_BY_SPAN)  # the traced window's alone
+        tracing.reset_constant_counts()
+    except (ImportError, AttributeError):  # a checkout from before the counters
+        CONSTANTS_BY_SPAN = None
+    by_span = syncs_by_span(tr, CONSTANTS_BY_SPAN)
+    by_stage: dict = {}
+    for name, counts in by_span.items():
+        st = by_stage.setdefault(stages.stage_of(name, kind), {})
+        for k, v in counts.items():
+            st[k] = st.get(k, 0) + v
+    return {"syncs": {name: {k: v / n for k, v in c.items()} for name, c in by_span.items()},
+            "sync_stages": {name: {k: v / n for k, v in c.items()}
+                            for name, c in by_stage.items()},
+            "constants_counted": CONSTANTS_BY_SPAN is not None}
 
 
 def main() -> int:
@@ -72,6 +147,7 @@ def main() -> int:
             "hold_spans": sum(1 for e in ev if e.get("cat") == "user_annotation"
                               and e["name"].startswith("hold.")) / n,
             "no_launch_event": orphans})
+        got.update(count_syncs(tr, kind, n))
         return s
 
     trace.summarize = split_too
