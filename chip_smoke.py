@@ -56,11 +56,12 @@ run trains the defaults, the proposal net on with its 1000-step warmup
    versions on the CPU at the same inputs, and the plain versions on the
    card against the CPU's; then one grad-stage loss and its parameter
    gradients at the card's z tables, kernels on the card against the plain
-   path on the CPU: with the chunked shade (``--no_fused_train``), with the
+   path on the CPU: with the chunked shade (the scene's plans replaced
+   in-process, ``with_plans``), with the
    fused training shade, and with it on the ``-f`` scene at its shapes (10
    frames x 8 rays: row 7 at 208 points a frame); the chunked shade in
-   float32 (``--shade_f32``, as its limits were read) and in bf16 (the
-   card's default) against the same bf16 shade on the CPU; beside the fused ones,
+   float32 (as its limits were read) and in bf16 (the card's) against the
+   same bf16 shade on the CPU; beside the fused ones,
    how far the z tables themselves move card vs CPU, held to a limit
    derived from the float64-exponential reading (``Z_MOVED_F64``), with the
    sampler's exponentials in float32 as the control that must exceed it,
@@ -86,11 +87,11 @@ run trains the defaults, the proposal net on with its 1000-step warmup
    with it and 3 with the empty state give grad_ms side by side; then the
    fused run resumed: at its saved step its parameters and Adam state must
    equal the checkpoint's bit for bit, then 2 more steps, which write
-   ``step_000000008.pt`` and validate; then 3 steps with
-   ``--no_fused_sampler`` (the layer-by-layer sampler), 3 steps with
-   ``--no_fused_train`` (the chunked shade, each chunk recomputed in the
-   backward, its products in bf16), 2 more with ``--shade_f32`` and 2 with
-   ``--no_remat`` (for their device time and peak memory);
+   ``step_000000008.pt`` and validate; then 3 steps with the
+   layer-by-layer sampler and 3 with the chunked shade (each chunk
+   recomputed in the backward, its products in bf16), each the scene's
+   plans replaced in-process (``training_plans``), so that the card trains
+   through the plain paths too;
    2 steps of ``-f`` through the CLI's parser (8 rays a frame, the sampler
    at 16 / 32 / 8 samples, 2 rounds); and a two-hand sequence: phase 4's
    fused agreement at 16 rays, then 3 steps at 1280 rays, each hand running
@@ -104,8 +105,8 @@ run trains the defaults, the proposal net on with its 1000-step warmup
    checkpoint and renders two full frames at ``render_downsample`` 2
    (120x160 = 19,200 rays, 4096 a chunk), counters at 0 just before: the
    maps must be finite and exactly the render path's kernels launched.  Then
-   phase 3's chunk again with the chunked render shade
-   (``--no_fused_render``), in float32 and in bf16, whose PSNR against the
+   phase 3's chunk again with the chunked render shade (the loaded scene's
+   plans replaced), in float32 and in bf16, whose PSNR against the
    fused render must reach ``PSNR_FLOOR``, one frame under torch.profiler
    for the device time by kernel family, and the same frames rendered by
    ``render_cli.render_on`` in two gloo ranks sharing the card (each
@@ -206,7 +207,7 @@ SOURCES = {"knn": "hold_tpu_torch/csrc/knn.cu", "pm": "hold_tpu_torch/csrc/point
            "fr": "hold_tpu_torch/csrc/fused_render.cu", "fs": "hold_tpu_torch/csrc/fused_shade.cu"}
 # kernel name -> (source, TPU kernel it replaces: file:line of the pallas_call,
 # the runs whose path launches it: "fused" (phase 5, the defaults), "layer"
-# (phase 5, --no_fused_sampler), "chunked" (phase 5, --no_fused_train),
+# (phase 5, the layer-by-layer sampler), "chunked" (phase 5, the chunked shade),
 # "render" (phase 6)).  The point-buffer forms of the fused query and the KNN
 # blend kernels are on no path, in the JAX package as here: phase 3 alone
 # drives them.
@@ -395,7 +396,7 @@ COLOUR_PARTS = ("bw.feat_w", "cw.C0a", "cw.C0f", "cw.C1", "cw.C2", "cw.C3", "cw.
 # phase 4, 16 rays: the card at most 2.5 with 0.4 % of a tensor beyond,
 # the CPU's own float64 reading 1.9 and 0.4 %, the chunked shade 2.5 and 25 %
 AGREE_LIMIT = (1e-2, 5.0)
-# phase 4, the bf16 chunked shade (--no_fused_train, the card's default)
+# phase 4, the bf16 chunked shade (the card's precision for it)
 # against the same shade on the CPU, 16 rays, by AGREE_LIMIT's method: on
 # an H100 the card read every one of 134 gradients within the bound, worst
 # 0.943; the CPU's f32 chunked shade (the control) 5.470, 28 tensors beyond
@@ -555,7 +556,7 @@ def check_support(torch, label: str, fn, pts, verts, skin) -> dict:
     with knn.count_search(torch.device("cuda")) as c:
         wb = fn()
         torch.cuda.synchronize()
-    ref_w, _ = knn._blend_plain(pts, verts, skin, 15)
+    ref_w, _ = knn.blend_plain(pts, verts, skin, 15)
     lanes, tie, vis, cul = (int(x) for x in c.tolist()[:4])
     differ = int(((wb > 0) != (ref_w > 0)).sum())
     err = max_err(wb, ref_w)
@@ -705,6 +706,7 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     """Phase 3: every kernel against its plain version at slice shapes."""
     import numpy as np
 
+    from hold_tpu_torch.models.embedders import embed_window
     from hold_tpu_torch.models.holdnet import (
         _rays, build_scene, empty_object_mesh_state, init_scene_params, sample_all_z,
     )
@@ -713,6 +715,7 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     from hold_tpu_torch.models.object_model import object_deform
     from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import knn, point_mesh
+    from hold_tpu_torch.ops import weight_pack as wp
     from hold_tpu_torch.utils.transforms import inverse_mat3
     from hold_tpu_torch.render.ray_sampler import uniform_z_vals
     from hold_tpu_torch.render.volsdf import get_sphere_intersections
@@ -927,9 +930,9 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     for nid in ("right", "object"):
         plans = scene.plans[nid]
         with torch.no_grad():
-            packs[nid] = fq.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
+            packs[nid] = wp.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
                                                plans.implicit)
-        windows[nid] = fq.embed_window(plans.implicit, sum(plans.barf_cfg) // 2,
+        windows[nid] = embed_window(plans.implicit, sum(plans.barf_cfg) // 2,
                                        plans.barf_cfg, dev)
     obj_tfs = _object_pose(params["object"], scene.servers["object"], batch).obj_tfs.detach()
     tf12 = torch.cat([inverse_mat3(obj_tfs[:, :3, :3]).reshape(B, 9), obj_tfs[:, :3, 3]],
@@ -939,7 +942,7 @@ def kernel_checks(torch, seq, args, cfg, dev) -> dict:
     obj = (tf12, windows["object"], packs["object"])
     rays = (ray_dirs.contiguous(), cam_loc.contiguous(), z_t)
     pts_b = fq.points_from_rays_z(*rays)
-    wbytes = fq.W_TOTAL * 2.0 + fq.F_TOTAL * 4.0
+    wbytes = wp.W_TOTAL * 2.0 + wp.F_TOTAL * 4.0
     act = 8 * 256 * 8.0  # softplus100 a hidden unit: f32 operations
     hand_f32 = knn_needed(1, V, J) + 24 * J + 45  # a point of the hand's warp
     # each kernel and plain call takes relu= (the relu trunk's form below)
@@ -1146,7 +1149,9 @@ def shade_grad_parts(fs, g: dict, tail) -> dict:
     """The backward's returned tensors cut into the parts checked on their
     own: x_c, J^-1 and (given) their ``tail`` rows, the frame bias, each
     matrix of the three packs, each bias row, the SDF head's row and bias."""
-    tw, bw, cw = fs._unpack(g["tw_b"], g["tw_f"], g["bw_b"], g["cw_b"], g["cw_f"])
+    from hold_tpu_torch.ops import weight_pack as wp
+
+    tw, bw, cw = wp.packs_of(g["tw_b"], g["tw_f"], g["bw_b"], g["cw_b"], g["cw_f"])
     parts = {"xc": g["xc"], "jinv9": g["jinv9"], "fb0": g["fb0"]}
     if tail is not None:
         parts.update({"xc tail": g["xc"].reshape(-1, 3)[tail],
@@ -1344,13 +1349,14 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
     points and J^-1 of both nodes (the sampler's z tables of one step, 10
     frames x 12,544 points) and at an N that is no multiple of the kernel's
     128-point tile; seeded cotangents."""
+    from hold_tpu_torch.models.embedders import embed_window
     from hold_tpu_torch.models.holdnet import _rays
     from hold_tpu_torch.models.mlp import _apply_linear, resolve_weight_norm
     from hold_tpu_torch.models.nodes import _mano_pose, _object_pose
     from hold_tpu_torch.models.object_model import object_deform
-    from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import fused_render as fr
     from hold_tpu_torch.ops import fused_shade as fs
+    from hold_tpu_torch.ops import weight_pack as wp
     from hold_tpu_torch.utils.transforms import inverse_mat3
 
     B = xc_hand.shape[0]
@@ -1361,10 +1367,10 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
             plans = scene.plans[nid]
             imp = resolve_weight_norm(params[nid]["implicit"])
             rend = resolve_weight_norm(params[nid]["rendering"])
-            tw = fq.pack_trunk_weights(imp, plans.implicit)
-            packs = (fq.embed_window(plans.implicit, sum(plans.barf_cfg) // 2, plans.barf_cfg, dev),
-                     tw, fr.pack_trunk_transposed(imp, plans.implicit, tw),
-                     fr.pack_color_weights(rend, imp))
+            tw = wp.pack_trunk_weights(imp, plans.implicit)
+            packs = (embed_window(plans.implicit, sum(plans.barf_cfg) // 2, plans.barf_cfg, dev),
+                     tw, wp.pack_trunk_transposed(imp, plans.implicit, tw),
+                     wp.pack_color_weights(rend, imp))
             if nid == "right":
                 _, cond = _mano_pose(params[nid], scene.servers[nid], batch, 25)
                 fb0 = fr.frame_bias0(rend, _apply_linear(rend["lin_pose"], cond))
@@ -1392,12 +1398,12 @@ def shade_checks(torch, scene, params, batch, z_obj, xc_hand, jinv_hand, dev, re
     n = args[0].shape[0] * args[0].shape[1]
     cts = [torch.randn(s, generator=gen, device=dev) for s in ((B, n // B), (B, n // B, 3),
                                                                (B, n // B, 3))]
-    wbytes = ((fq.W_TOTAL + fr.T_TOTAL + fr.C_TOTAL) * 2.0 + (fq.F_TOTAL + fr.CB_TOTAL) * 4.0
+    wbytes = ((wp.W_TOTAL + wp.T_TOTAL + wp.C_TOTAL) * 2.0 + (wp.F_TOTAL + wp.CB_TOTAL) * 4.0
               + B * 256 * 4.0)
     act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
     shape = f"B={B} N={n // B} (hand; also the object and N={n // B - 61})"
     # the forward timed with its weight stream made, as the op makes it once a call
-    slabs = fs.tile_shade_bwd(*args[4:])
+    slabs = wp.tile_shade_bwd(*args[4:])
     for name, kern, plain, macs, f32_pp, bytes_pp, bytes_once in (
         ("fused_shade_train.fwd", lambda: fs.shade_train_fwd_cuda(*args, slabs),
          lambda: fs.shade_train_plain(*args), fs.SHADE_FWD_MACS, act, 76.0, wbytes),
@@ -1441,8 +1447,8 @@ def fast_shape_checks(torch, seq, data_root: str, dev, results) -> None:
     32 / 8 samples, 2 rounds) on 10 frames x 8 rays.  Every call that one
     step's sampler makes of the fused query kernels, at its own inputs,
     against the plain version and against the layer-by-layer query (the
-    ``--no_fused_sampler`` path, which the JAX package takes at these sample
-    counts), under the fused query's bounds; against the layer-by-layer
+    path the JAX package takes at these sample counts), under the fused
+    query's bounds; against the layer-by-layer
     query, which rounds to bf16 at other places, the mean too is scaled by
     max(1, |sdf|): the object's far samples reach |sdf| ~ 30, where a bf16
     step is 0.125.  Row 7 at these shapes: phase 4's agreement on the ``-f``
@@ -1803,11 +1809,13 @@ def bench_row_checks(torch, scene, params, batch, zs, dev, results) -> None:
     on the whole call, its plain version on the first frames, under the
     tolerances phase 3 holds it to at 1,280 rays; the kernel's time on the
     whole call."""
+    from hold_tpu_torch.models.embedders import embed_window
     from hold_tpu_torch.models.holdnet import _rays, empty_object_mesh_state
     from hold_tpu_torch.models.mlp import resolve_weight_norm
     from hold_tpu_torch.models.nodes import _mano_pose, _object_pose
     from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import knn, point_mesh
+    from hold_tpu_torch.ops import weight_pack as wp
     from hold_tpu_torch.render.ray_sampler import uniform_z_vals
     from hold_tpu_torch.render.volsdf import get_sphere_intersections
     from hold_tpu_torch.utils.transforms import inverse_mat3
@@ -1921,9 +1929,9 @@ def bench_row_checks(torch, scene, params, batch, zs, dev, results) -> None:
     for nid in ("right", "object"):
         plans = scene.plans[nid]
         with torch.no_grad():
-            packs[nid] = fq.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
+            packs[nid] = wp.pack_trunk_weights(resolve_weight_norm(params[nid]["implicit"]),
                                                plans.implicit)
-        windows[nid] = fq.embed_window(plans.implicit, sum(plans.barf_cfg) // 2,
+        windows[nid] = embed_window(plans.implicit, sum(plans.barf_cfg) // 2,
                                        plans.barf_cfg, dev)
     tf12 = torch.cat([inverse_mat3(obj_tfs[:, :3, :3]).reshape(B, 9), obj_tfs[:, :3, 3]],
                      dim=-1).contiguous()
@@ -1975,8 +1983,8 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
     from hold_tpu_torch.models.holdnet import _rays, sample_all_z
     from hold_tpu_torch.models.mlp import _apply_linear, resolve_weight_norm
     from hold_tpu_torch.models.nodes import _mano_pose, _object_pose, node_render_packs
-    from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.ops import weight_pack as wp
     from hold_tpu_torch.utils.transforms import inverse_mat3
 
     batch, _ = render_batch(torch, seq, dev, PIXEL_PER_BATCH)
@@ -2005,8 +2013,8 @@ def render_checks(torch, seq, scene, params, dev, record) -> None:
     V, J = inputs["right"][1].shape[1], inputs["right"][3].shape[2]
     order = scene.plans["right"].tile_order
     hand_search = hand_render_search(torch, inputs["right"], order)
-    wbytes = ((fq.W_TOTAL + fr.T_TOTAL + fr.C_TOTAL) * 2.0
-              + (fq.F_TOTAL + fr.CB_TOTAL + 256) * 4.0)
+    wbytes = ((wp.W_TOTAL + wp.T_TOTAL + wp.C_TOTAL) * 2.0
+              + (wp.F_TOTAL + wp.CB_TOTAL + 256) * 4.0)
     act = 8 * 256 * 10.0 + 8 * 256 + 4 * 256 * 2 + 60  # activations, sigmoids, relus
     for name, nid, kern, plain, f32_pp, bytes_once in (
         ("fused_hand_render", "right", lambda *a: fr.fused_hand_render(*a, order=order),
@@ -2193,11 +2201,33 @@ def float32_exponentials(torch):
         ray_sampler._exp64, ray_sampler.error_bound_round, ray_sampler.error_bound_final = real
 
 
-def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 1,
-                    rays: int = 16, z_case: str = "one hand", shade_f32: bool = True) -> None:
+def with_plans(scene, **fields):
+    """``scene`` with every node's plans given ``fields``
+    (``NodePlans._replace``): the layer-by-layer sampler
+    (``fused_query=False``), the chunked shade (``fused_shade=False``) and its
+    precision (``shade_bf16``) on nets the kernels take."""
+    scene.plans = {nid: p._replace(**fields) for nid, p in scene.plans.items()}
+    return scene
+
+
+@contextlib.contextmanager
+def training_plans(**fields):
+    """``run_training`` building its scene ``with_plans(**fields)``."""
+    from hold_tpu_torch import train
+
+    build = train.build_scene
+    train.build_scene = lambda *a, **k: with_plans(build(*a, **k), **fields)
+    try:
+        yield
+    finally:
+        train.build_scene = build
+
+
+def agreement_check(torch, seq, args, cfg, dev, fused: bool, pairs: int = 1,
+                    rays: int = 16, z_case: str = "one hand", f32: bool = True) -> None:
     """Phase 4: grad-stage loss and gradients, card kernels vs CPU plain path,
     on ``pairs`` pairs of frames x ``rays`` rays, with the fused training
-    shade or the chunked one (``--no_fused_train``).
+    shade or the chunked one (the scene's plans replaced, ``with_plans``).
     The chunked path is held to 1e-4 (losses) and 2e-4 (gradients); the
     fused one, whose bf16 roundings fall on different sides where the sums'
     order differs, to 2e-3 (losses, the JAX package's fused-vs-chunked bound)
@@ -2206,8 +2236,8 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 
     chunked f32 shade (the control).  Every run shades the card's z tables;
     the sdf that the card's sampler read to place them is held to the CPU's
     at the same inputs (``sampler_reads_check``).  The chunked shade runs in
-    float32 (``shade_f32``, as these readings were taken) but for the bf16
-    check (``fused_train=False, shade_f32=False``): the card's bf16 chunked
+    float32 (``f32``, as these readings were taken) but for the bf16
+    check (``fused=False, f32=False``): the card's bf16 chunked
     shade against the same shade on the CPU, losses at 2e-3, each
     parameter's gradient under BF16_AGREE_LIMIT with the CPU's float32
     chunked shade as the control that must fail it."""
@@ -2231,15 +2261,12 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 
     draws_cpu = sample_step_draws(scene_cpu, 2 * pairs, rays, torch.Generator().manual_seed(4))
     z_card = {}
 
-    def grad_stage(device, fused: bool = fused_train, f32: bool = shade_f32):
-        scene = build_scene(opt_model, dict(args), seq.scene_data(), device, fused_train=fused,
-                            shade_f32=f32)
-        if not fused and [scene.plans[nid].shade_bf16 for nid in scene.node_ids] != [not f32] * len(
-                scene.node_ids):
-            raise AssertionError(f"the chunked shade is not {'f32' if f32 else 'bf16'}")
-        if [scene.plans[nid].fused_train for nid in scene.node_ids] != [fused] * len(
-                scene.node_ids):
-            raise AssertionError(f"fused training shade not {fused} on every node")
+    def grad_stage(device, fused: bool = fused, f32: bool = f32):
+        scene = build_scene(opt_model, dict(args), seq.scene_data(), device)
+        if not all(scene.plans[nid].fused_shade for nid in scene.node_ids):
+            raise AssertionError("the slice's shade is not the fused one on every node")
+        if not fused:  # the chunked shade, its products as asked
+            with_plans(scene, fused_shade=False, shade_bf16=not f32)
         params = leaf_params(params0, device)
         batch = batch_to_device(batch_np, device)
         if not z_card:  # the card's sampler places the samples for every run
@@ -2265,13 +2292,13 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 
     losses, grads = {}, {}
     losses["cuda"], grads["cuda"] = grad_stage(dev)
     losses["cpu"], grads["cpu"] = grad_stage(torch.device("cpu"))
-    rtol = 2e-3 if fused_train or not shade_f32 else 1e-4
+    rtol = 2e-3 if fused or not f32 else 1e-4
     for k, v in losses["cpu"].items():
         got = losses["cuda"][k]
         print(f"  {k}: card {got:.6f} cpu {v:.6f}", flush=True)
         if not (math.isfinite(got) and abs(got - v) <= rtol * abs(v) + 1e-5):
             raise AssertionError(f"{k}: card and CPU disagree")
-    if fused_train:
+    if fused:
         # how far the z tables themselves move: the card's against the CPU's,
         # held to the limit of ``z_case`` (z_moved_limit); the same with the
         # sampler's exponentials in float32 on both (the control, which must
@@ -2328,7 +2355,7 @@ def agreement_check(torch, seq, args, cfg, dev, fused_train: bool, pairs: int = 
             raise AssertionError(f"gradients beyond their limit: {failed[:8]}, or the limit "
                                  f"passes the chunked control")
         return
-    if not shade_f32:
+    if not f32:
         _, grads["f32 chunked"] = grad_stage(torch.device("cpu"), f32=True)
         read = {lab: {k: grad_reading(torch, grads[src][k], ref) for k, ref in grads["cpu"].items()}
                 for lab, src in (("kernel", "cuda"), ("f32 chunked", "f32 chunked"))}
@@ -2378,7 +2405,7 @@ def render_agreement(torch, seq, args, cfg, dev) -> None:
     maps, z_vals = {}, None
     for device in (dev, torch.device("cpu")):
         scene = build_scene(dict(cfg["model"]), dict(args), seq.scene_data(), device)
-        if not all(p.fused_render for p in scene.plans.values()):
+        if not all(p.fused_shade for p in scene.plans.values()):
             raise AssertionError("the slice's render shade is not the fused one")
         params = leaf_params(params0, device)
         batch, _ = render_batch(torch, seq, device, 256)
@@ -2408,33 +2435,28 @@ def slice_run(torch, seq, args, cfg, dev, steps: int, path: str | None = None,
     from hold_tpu_torch.ops import fused_query, fused_render, fused_shade, knn, point_mesh
     from hold_tpu_torch.train import run_training
 
-    path = path or ("layer" if args.get("no_fused_sampler") else
-                    "chunked" if args.get("no_fused_train") else "fused")
-    flags = [f for f in ("no_remat", "shade_f32") if args.get(f)]
-    print(f"  -- {path}{''.join(f' (--{f})' for f in flags)}: {steps} steps", flush=True)
+    path = path or "fused"
+    print(f"  -- {path}: {steps} steps", flush=True)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mods = (knn, point_mesh, fused_query, fused_render, fused_shade)
     for mod in mods:
         mod.reset_launch_counts()
-    params, scene, mesh_state, tracker, timer, _ = run_training(args, cfg, seq=seq,
-                                                                max_steps=first + steps,
-                                                                device=dev)
+    plain = {"layer": {"fused_query": False}, "chunked": {"fused_shade": False}}.get(path, {})
+    with training_plans(**plain):
+        params, scene, mesh_state, tracker, timer, _ = run_training(args, cfg, seq=seq,
+                                                                    max_steps=first + steps,
+                                                                    device=dev)
     torch.cuda.synchronize()
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     peak = torch.cuda.max_memory_allocated()
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
-    shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_train]
+    shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_shade]
     if (fused != (list(scene.node_ids) if path != "layer" else [])
             or shade != (list(scene.node_ids) if path != "chunked" else [])):
         raise AssertionError(f"{path} run: fused sampler on {fused}, fused shade on {shade}")
-    if path == "chunked":
-        bf16 = [scene.plans[nid].shade_bf16 for nid in scene.node_ids]
-        if bf16 != [not args.get("shade_f32")] * len(bf16):
-            raise AssertionError(f"chunked run: bf16 products {bf16} with --shade_f32 "
-                                 f"{bool(args.get('shade_f32'))}")
-        print(f"  the chunked shade's products: {'float32' if args.get('shade_f32') else 'bf16'}",
-              flush=True)
+    if path == "chunked" and not all(scene.plans[nid].shade_bf16 for nid in scene.node_ids):
+        raise AssertionError("chunked run: the card's chunked shade not in bf16")
     with open(os.path.join(tracker.log_dir, "metrics.jsonl")) as f:
         records = [r for r in map(json.loads, f) if "loss" in r and r["step"] >= first]
     if len(records) != steps:
@@ -2563,7 +2585,7 @@ def two_hand_run(torch, args, cfg, dev, launches: dict) -> dict:
     seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=RAYS_PER_FRAME)
     print(f"  -- two hands: the fused agreement at 16 rays ({seq.hand_ids} + object)",
           flush=True)
-    agreement_check(torch, seq, args, cfg, dev, fused_train=True, z_case="two hands")
+    agreement_check(torch, seq, args, cfg, dev, fused=True, z_case="two hands")
     got, run = slice_run(torch, seq, Cfg({**args, "exp_key": "chip_smoke_two_hands"}), cfg, dev,
                          LAYER_STEPS, path="two_hands")
     if run[1].node_ids != ("right", "left", "object"):
@@ -2887,9 +2909,8 @@ def render_slice(torch, seq, data_root, args, dev) -> dict:
     # the chunked render shade in float32 (the reading PSNR_FLOOR was set
     # on), then in bf16 (the card's default)
     for f32 in (True, False):
-        params, scene, _ = load_experiment(exp, seq, dev, fused_render=False, shade_f32=f32)
-        if [p.shade_bf16 for p in scene.plans.values()] != [not f32] * len(scene.plans):
-            raise AssertionError("the chunked render shade's precision is not the one asked for")
+        params, scene, _ = load_experiment(exp, seq, dev)
+        with_plans(scene, fused_shade=False, shade_bf16=not f32)
         layer = make_chunk_renderer(scene)(params, batch)
         mse = float(np.mean((layer["rgb"].cpu().numpy() - res0["rgb"].reshape(-1, 3)[pix]) ** 2))
         psnr = -10.0 * math.log10(max(mse, 1e-20))
@@ -2939,7 +2960,7 @@ def two_rank_render(torch, args, data_root: str, records: list, dev) -> dict:
     cli = argparse.Namespace(
         exp=exp, case="synthetic", data_root=data_root, render_downsample=RENDER_DOWNSAMPLE,
         agent_id=0, num_agents=FRAMES // RENDER_FRAMES, pixel_per_batch=PIXEL_PER_BATCH,
-        out=out, export_root=exports, device="cuda", no_fused_render=False)
+        out=out, export_root=exports, device="cuda")
     t0 = time.perf_counter()
     ranks = render_cli.render_on(cli, [str(dev), str(dev)], backend="gloo", worker=render_rank,
                                  timeout=600)
@@ -4211,17 +4232,16 @@ def main(argv=None) -> int:
 def card_vs_cpu(torch, seq, data_root, args, cfg, dev) -> None:
     """Phase 4."""
     phase("4 card vs CPU agreement on a small batch")
-    print("  -- chunked shade (--no_fused_train), float32 (--shade_f32)", flush=True)
-    agreement_check(torch, seq, args, cfg, dev, fused_train=False)
-    print("  -- chunked shade (--no_fused_train), its bf16 products (the card's default)",
-          flush=True)
-    agreement_check(torch, seq, args, cfg, dev, fused_train=False, shade_f32=False)
+    print("  -- chunked shade, float32", flush=True)
+    agreement_check(torch, seq, args, cfg, dev, fused=False)
+    print("  -- chunked shade, its bf16 products (the card's)", flush=True)
+    agreement_check(torch, seq, args, cfg, dev, fused=False, f32=False)
     print("  -- fused training shade", flush=True)
-    agreement_check(torch, seq, args, cfg, dev, fused_train=True)
+    agreement_check(torch, seq, args, cfg, dev, fused=True)
     print("  -- fused training shade, the -f scene at its shapes (10 frames x 8 rays)",
           flush=True)
     fast_args, fast_cfg = fast_config(data_root)
-    agreement_check(torch, seq, fast_args, fast_cfg, dev, fused_train=True, pairs=BATCH_SIZE,
+    agreement_check(torch, seq, fast_args, fast_cfg, dev, fused=True, pairs=BATCH_SIZE,
                     rays=int(fast_args["num_sample"]), z_case="fast")
     print("  -- render", flush=True)
     render_agreement(torch, seq, args, cfg, dev)
@@ -4250,20 +4270,9 @@ def train_and_serve(torch, seq, data_root, args, cfg, dev, t_all) -> dict:
     del fused
     print("  -- resume", flush=True)
     launches = {"fused": fused_launches, "resume": resume_checks(torch, seq, fused_args, cfg, dev)}
-    launches["layer"] = slice_run(torch, seq, Cfg({**args, "no_fused_sampler": True,
-                                                   "exp_key": "chip_smoke_layer"}),
-                                  cfg, dev, LAYER_STEPS)[0]
-    launches["chunked"] = slice_run(torch, seq, Cfg({**args, "no_fused_train": True,
-                                                     "exp_key": "chip_smoke_chunked"}),
-                                    cfg, dev, LAYER_STEPS)[0]
-    # the chunked shade in float32 (--shade_f32) beside its bf16 default on
-    # the card, for its device time and peak memory
-    slice_run(torch, seq, Cfg({**args, "no_fused_train": True, "shade_f32": True,
-                               "exp_key": "chip_smoke_chunked_f32"}), cfg, dev, 2)
-    # the chunked shade once more with every chunk's graph kept, for its peak
-    # memory beside the recomputing default's
-    slice_run(torch, seq, Cfg({**args, "no_fused_train": True, "no_remat": True,
-                               "exp_key": "chip_smoke_no_remat"}), cfg, dev, 2)
+    for path in ("layer", "chunked"):
+        launches[path] = slice_run(torch, seq, Cfg({**args, "exp_key": f"chip_smoke_{path}"}),
+                                   cfg, dev, LAYER_STEPS, path)[0]
     launches["fast"] = fast_run(torch, seq, data_root, dev)
     launches["two_hands"] = two_hand_run(torch, args, cfg, dev, launches)
 

@@ -75,6 +75,18 @@ def window_on(alpha: float | None, num_freq: int, input_dims: int, device,
     return cached(("window", alpha, num_freq, input_dims, include_input, dtype, dev), make)
 
 
+def embed_window(plan: dict, step, barf_cfg, device=None) -> torch.Tensor:
+    """The fused kernels' (E,) f32 embedding window for an implicit-net plan:
+    ones, or the BARF window at ``step`` for a ``barf`` node (the JAX
+    package's ``_fused_embed_plan`` column 3); kept on ``device`` per window
+    (``window_on``): no stream sync."""
+    L = plan["multires"]
+    alpha = None
+    if plan["embedding"] == "barf" and step is not None:
+        alpha = barf_alpha(step, L, *barf_cfg)
+    return window_on(alpha, L, 3, device)
+
+
 def barf_embed(x: torch.Tensor, num_freq: int, alpha: float | None,
                include_input: bool = True) -> torch.Tensor:
     enc = fourier_embed(x, num_freq, include_input=include_input)

@@ -19,9 +19,6 @@ import numpy as np
 import torch
 
 from ..mano.server import build_mano_server
-from ..ops.chunk import DEFAULT_CHUNK
-from ..ops.fused_query import supports_fused_query
-from ..ops.fused_render import supports_fused_render
 from ..ops.knn import tile_order
 from ..ops.point_mesh import (
     face_circumradius_bound,
@@ -35,6 +32,7 @@ from ..ops.sampling import (
     point_in_space_sample,
     sample_on_mesh_barycentric,
 )
+from ..ops.weight_pack import supports_fused_query, supports_fused_render
 from ..parallel.sharding import generator_of, ray_rand
 from ..render.background import background_forward, background_plans, init_background
 from ..render.ray_sampler import SamplerConfig, inverse_sphere_z_vals
@@ -99,26 +97,17 @@ def _object_render_opt(opt_model) -> dict:
     return opt
 
 
-def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool = True,
-                fused_render: bool = True, fused_train: bool = True,
-                remat: bool = True, proposal: bool = True, node_bounds: bool = False,
-                sampler_knn_stride: int = 1, sampler_relu: bool = False,
-                shade_f32: bool | None = None, shade_chunk: int = DEFAULT_CHUNK) -> Scene:
-    """Static scene state on ``device``.  ``fused_sampler=False`` makes every
-    node's sampler query the trunk layer by layer (the JAX package's
-    ``HOLD_NO_FUSED_SAMPLER=1``), ``fused_render=False`` every node's render
-    shade run the chunked grad-stage shade (``HOLD_NO_FUSED_RENDER=1``, which
-    turns the fused training shade off too, as in the JAX package),
-    ``fused_train=False`` every node's grad stage run the chunked shade
-    (``HOLD_NO_FUSED_TRAIN=1``); otherwise nodes whose nets the fused kernels
-    support use them.  ``remat=False`` makes the chunked shade keep every
-    chunk's graph instead of recomputing it in the backward
-    (``HOLD_NO_REMAT=1``).  The chunked shade runs its trunk's and colour
-    net's products in bf16 on the card and in float32 on the CPU, as the JAX
-    package does on its accelerator and off it (``_shade_params``);
-    ``shade_f32=True`` forces float32 (``HOLD_SHADE_F32=1``),
-    ``shade_f32=False`` bf16 on any device.  ``shade_chunk`` is its points a
-    chunk (``HOLD_SHADE_CHUNK``).
+def build_scene(opt_model, args, scene_data: dict, device, proposal: bool = True,
+                node_bounds: bool = False, sampler_knn_stride: int = 1,
+                sampler_relu: bool = False) -> Scene:
+    """Static scene state on ``device``.  Each node's path follows from its
+    nets and the device alone: the sampler's queries are the fused query
+    kernel where ``supports_fused_query`` takes the implicit net, else the
+    trunk layer by layer; the grad stage's and the render's shade are the
+    fused shade kernels where ``supports_fused_render`` takes both nets, else
+    the chunked shade (each chunk recomputed in the backward), whose
+    products run in bf16 on the card and in float32 on the CPU, as the JAX
+    package's do on its accelerator and off it (``_shade_params``).
 
     Every node gets a proposal net when ``model.proposal.enabled`` and
     ``proposal`` (``proposal=False`` is the JAX ``HOLD_NO_PROPOSAL=1``).  The
@@ -147,7 +136,6 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
     prop_plan = (proposal_net_shapes(prop_cfg) if proposal and prop_cfg.get("enabled", False)
                  else None)
     stride = max(1, int(sampler_knn_stride))
-    shade_bf16 = device.type == "cuda" if shade_f32 is None else not shade_f32
     servers, plans, sub_ops = {}, {}, {}
     for nid in node_ids:
         if nid == "object":
@@ -177,11 +165,9 @@ def build_scene(opt_model, args, scene_data: dict, device, fused_sampler: bool =
         plans[nid] = NodePlans(
             implicit=implicit, rendering=rendering,
             sampler=sampler_cfg, barf_cfg=barf_cfg, class_id=CLASS_IDS[nid],
-            fused_query=fused_sampler and supports_fused_query(implicit),
-            fused_render=fused_render and supports_fused_render(implicit, rendering),
-            fused_train=(fused_train and fused_render
-                         and supports_fused_render(implicit, rendering)),
-            remat=remat, shade_bf16=shade_bf16, shade_chunk=int(shade_chunk),
+            fused_query=supports_fused_query(implicit),
+            fused_shade=supports_fused_render(implicit, rendering),
+            shade_bf16=device.type == "cuda",
             proposal=prop_plan, sampler_relu=sampler_relu,
             node_bounds=node_bounds, **orders,
         )
@@ -494,7 +480,7 @@ def render_packs(params, scene: Scene) -> dict:
     """The fused render's weight packs of every node that uses it, to build
     once per set of params and pass to each ``holdnet_render`` call."""
     return {nid: node_render_packs(params[nid], scene.plans[nid], scene.device)
-            for nid in scene.node_ids if scene.plans[nid].fused_render}
+            for nid in scene.node_ids if scene.plans[nid].fused_shade}
 
 
 @torch.no_grad()

@@ -19,20 +19,20 @@ canonical field.  Training runs in two stages:
   sphere (``node_bounds``).
 - ``*_node_forward``: the grad stage.  The hand's warp and inverse skinning
   Jacobian are the ``knn_inverse_warp_diff`` and ``knn_jacobian_inverse``
-  kernels.  By default (``NodePlans.fused_train``) the shade (SDF, its
-  gradient for the normal, features, color) is the fused training shade
-  (``ops/fused_shade.py``: one forward kernel per node, and a backward that
-  recomputes it and applies the second-order chain, its J^-1 gradient going
-  on to the Jacobian kernel's backward).  Otherwise it runs chunked over the
-  points (``NodePlans.shade_chunk`` a chunk), with the SDF gradient taken
+  kernels.  Where the kernels take the node's nets (``NodePlans.fused_shade``)
+  the shade (SDF, its gradient for the normal, features, color) is the fused
+  training shade (``ops/fused_shade.py``: one forward kernel per node, and a
+  backward that recomputes it and applies the second-order chain, its J^-1
+  gradient going on to the Jacobian kernel's backward).  Otherwise it runs
+  chunked over the points (``ops/chunk.py``), with the SDF gradient taken
   with ``create_graph=True`` so the loss differentiates through it, each
-  chunk recomputed in the backward (``NodePlans.remat``); with
-  ``NodePlans.shade_bf16`` (the card's default, the JAX package's on its
-  accelerator) the trunk's and the colour net's products run in bfloat16.
+  chunk recomputed in the backward; with ``NodePlans.shade_bf16`` (on the
+  card, as the JAX package on its accelerator) the trunk's and the colour
+  net's products run in bfloat16.
 
 Rendering (``*_node_render``, the JAX forwards at ``training=False``) runs
-under ``torch.no_grad()`` at the eval sampler's z table.  By default
-(``NodePlans.fused_render``) each node's shade is one fused kernel
+under ``torch.no_grad()`` at the eval sampler's z table.  With
+``NodePlans.fused_shade`` each node's shade is one fused kernel
 (``ops/fused_render.py``: warp, J^-1, trunk, normal and colour); otherwise it
 is the grad stage's warps and chunked shade without the graph.
 
@@ -49,26 +49,21 @@ from typing import NamedTuple
 import torch
 
 from ..mano.server import ManoServerState, mano_server_forward
-from ..ops.chunk import DEFAULT_CHUNK, map_chunked
-from ..ops.fused_query import (
-    embed_window,
-    fused_hand_sampler_sdf_z,
-    fused_object_sampler_sdf_z,
-    pack_trunk_weights,
-)
-from ..ops.fused_render import (
-    frame_bias0,
-    fused_hand_render,
-    fused_object_render,
-    pack_color_weights,
-    pack_trunk_transposed,
-    tile_shade_fwd,
-)
+from ..ops.chunk import map_chunked
+from ..ops.fused_query import fused_hand_sampler_sdf_z, fused_object_sampler_sdf_z
+from ..ops.fused_render import frame_bias0, fused_hand_render, fused_object_render
 from ..ops.fused_shade import fused_shade_train
 from ..ops.knn import knn_inverse_warp, knn_inverse_warp_diff, knn_jacobian_inverse
+from ..ops.weight_pack import (
+    pack_color_weights,
+    pack_trunk_transposed,
+    pack_trunk_weights,
+    tile_shade_fwd,
+)
 from ..render.ray_sampler import SamplerConfig, error_bound_z_vals, node_ray_interval
 from ..utils.transforms import inverse_mat3, safe_norm
 from .density import laplace_beta, laplace_density
+from .embedders import embed_window
 from .mlp import (
     _apply_linear,
     apply_implicit_trunk,
@@ -92,12 +87,11 @@ class NodePlans(NamedTuple):
     knn_k: int = 15
     max_dist: float = 0.1
     fused_query: bool = False  # sampler queries through ops/fused_query.py
-    fused_render: bool = False  # render shade through ops/fused_render.py
-    fused_train: bool = False  # grad-stage shade through ops/fused_shade.py
-    remat: bool = True  # the chunked shade recomputes each chunk in the backward
+    # the grad stage's and the render's shade through ops/fused_shade.py and
+    # ops/fused_render.py
+    fused_shade: bool = False
     # the chunked shade's trunk and colour net in bf16 (the JAX _shade_params)
     shade_bf16: bool = False
-    shade_chunk: int = DEFAULT_CHUNK  # points a chunk of the chunked shade (HOLD_SHADE_CHUNK)
     # the vertex searches' tile orders (ops/knn.py tile_order), int32, hands
     # only: of the MANO vertices and of the subdivided mesh's
     tile_order: torch.Tensor | None = None
@@ -247,7 +241,7 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
         "jnts": srv_out.jnts,
         "outlier": outlier,
     }
-    if plans.fused_train:
+    if plans.fused_shade:
         pe = _apply_linear(rend["lin_pose"], cond_pose).float()  # (B, 8), once per frame
         sdf, rgb, normals = _fused_shade(imp, rend, plans, x_c, jinv9, frame_bias0(rend, pe), step)
         sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
@@ -273,8 +267,7 @@ def mano_node_forward(nparams, server: ManoServerState, plans: NodePlans, batch,
         return sdf, rgb, nrm
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), pe_pp, view, jinv9),
-                                    B * P * S_f, chunk=plans.shade_chunk, remat=plans.remat,
-                                    closed=_tree_tensors(imp, rend))
+                                    B * P * S_f, closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
     return factors, sample_dict
@@ -296,7 +289,7 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
         "canonical_pts": x_c.reshape(B, P, S_f, 3),
         "tfs": tfs,
     }
-    if plans.fused_train:
+    if plans.fused_shade:
         # J^-1 = Rinv, the same for every point of a frame
         jinv9 = inverse_mat3(tfs[:, :3, :3]).reshape(B, 1, 9).expand(B, P * S_f, 9)
         fb0 = frame_bias0(rend, torch.zeros((B, 8), device=pts.device), time_code)
@@ -321,7 +314,6 @@ def object_node_forward(nparams, server: ObjectServerState, plans: NodePlans, ba
         return sdf, rgb, nrm
 
     sdf, rgb, normals = map_chunked(shade, (x_c.reshape(-1, 3), view, rinv, tc_pp), N,
-                                    chunk=plans.shade_chunk, remat=plans.remat,
                                     closed=_tree_tensors(imp, rend))
     factors = _node_outputs(plans, nparams, z_vals, sdf, rgb, normals, B, P, S_f)
     sample_dict["sample_sdf"] = sdf.reshape(B, P, S_f)
@@ -360,7 +352,7 @@ def mano_node_render(nparams, server: ManoServerState, plans: NodePlans, batch, 
     ``training=False``): (factors, sample_dict), no gradient.  The pose
     conditioning is not zeroed (no epoch).  ``packs`` is
     ``node_render_packs``'s, built here when not given."""
-    if not plans.fused_render:
+    if not plans.fused_shade:
         return mano_node_forward(nparams, server, plans, batch, ray_dirs, cam_loc, None, None,
                                  z_vals, create_graph=False)
     B, P = batch["uv"].shape[:2]
@@ -396,7 +388,7 @@ def object_node_render(nparams, server: ObjectServerState, plans: NodePlans, bat
                        cam_loc, z_vals, packs=None):
     """The object's inference forward: its colour net takes no pose
     embedding and the frame latent as its time code."""
-    if not plans.fused_render:
+    if not plans.fused_shade:
         return object_node_forward(nparams, server, plans, batch, ray_dirs, cam_loc, None, None,
                                    z_vals, create_graph=False)
     B, P = batch["uv"].shape[:2]

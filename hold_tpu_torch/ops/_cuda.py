@@ -145,3 +145,15 @@ def check(t: torch.Tensor, name: str, shape: tuple, dtype=torch.float32) -> None
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def ptrs(*ts) -> list:
+    """The tensors' device addresses, as the entry points take them."""
+    return [t.data_ptr() for t in ts]
+
+
+def require_cpu(t: torch.Tensor) -> None:
+    """Raise unless ``t`` is on the CPU: a wrapper given neither a CUDA nor
+    a CPU tensor has no kernel and no plain version to run."""
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel or plain path for device {t.device}")

@@ -2,10 +2,9 @@
 
 ``map_chunked`` splits a flat point axis into fixed chunks, runs the body on
 each and concatenates the outputs, which bounds the size of each chunk's
-intermediate tensors.  With ``remat`` (the default, the JAX package's
-``jax.checkpoint`` around the body) autograd keeps only each chunk's inputs
-and runs the body again in the backward pass; without it (the JAX package's
-``HOLD_NO_REMAT=1``) every chunk's graph stays alive until the backward.
+intermediate tensors.  Under grad mode autograd keeps only each chunk's
+inputs and runs the body again in the backward pass (the JAX package's
+``jax.checkpoint`` around the body).
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ import torch
 DEFAULT_CHUNK = 32768
 
 
-class _Remat(torch.autograd.Function):
+class _Recompute(torch.autograd.Function):
     """``body`` on one chunk, keeping its inputs only.  The backward runs the
     body again under grad mode and differentiates that graph once, towards
     the chunk's arguments and the tensors the body closes over (``closed``),
@@ -49,19 +48,18 @@ class _Remat(torch.autograd.Function):
         return (None, None, *grads)
 
 
-def map_chunked(body, args: tuple, n: int, chunk: int = DEFAULT_CHUNK, remat: bool = True,
-                closed: tuple = ()):
+def map_chunked(body, args: tuple, n: int, chunk: int = DEFAULT_CHUNK, closed: tuple = ()):
     """Apply ``body(*chunk_args) -> tuple of (C, ...)`` over a flat axis of
     length ``n`` shared by every tensor in ``args``.
 
     ``closed`` lists the tensors the body closes over whose gradients the
-    caller wants: with ``remat`` they reach them only when named here.  Under
-    ``torch.no_grad`` nothing is kept either way and the body runs as is."""
-    if remat and torch.is_grad_enabled():
+    caller wants: they reach them only when named here.  Under
+    ``torch.no_grad`` nothing is kept and the body runs as is."""
+    if torch.is_grad_enabled():
         closed = tuple(c for c in closed if c.requires_grad)
 
         def run(*a):
-            return _Remat.apply(body, len(a), *a, *closed)
+            return _Recompute.apply(body, len(a), *a, *closed)
     else:
         run = body
     if n <= chunk:

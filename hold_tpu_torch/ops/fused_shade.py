@@ -21,10 +21,11 @@ normal (B, N, 3)) and is differentiable in x_c, J^-1, the frame bias and
 every pack buffer, not in the window.  Given CPU tensors it runs the two
 plain functions; given CUDA tensors it launches the kernels or raises, and
 never falls back.  The kernels take every product's weights as one stream of
-shared-memory stage images (``tile_shade_bwd``), made from the packs once a
-call of the op: the forward reads its first ``N_FWD_SLABS`` stages (the
-render's stream, ``tile_shade_fwd``), the backward all of them; the weights'
-gradients come back in the packs' layout.  Each launch adds one to
+shared-memory stage images (``ops/weight_pack.py`` ``tile_shade_bwd``), made
+from the packs once a call of the op: the forward reads its first
+``N_FWD_SLABS`` stages (the render's stream, ``tile_shade_fwd``), the
+backward all of them; the weights' gradients come back in the packs'
+layout.  Each launch adds one to
 ``LAUNCHES[name]``: the forward once a call, the backward once a chunk of
 ``CHUNK`` points.
 """
@@ -34,36 +35,24 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .fused_query import (
-    _LAYOUT,
+from .fused_render import RENDER_MACS, check_render, check_stream, shade_plain, shade_scratch
+from .weight_pack import (
+    C0A,
+    C_TOTAL,
+    CB_TOTAL,
+    COLOR_LAYOUT,
     EMB_PAD,
     F_TOTAL,
     H,
     SLAB,
-    W_TOTAL,
-    _multires,
-    _ptr,
-    _require_cpu,
-)
-from .fused_render import (
-    _C_LAYOUT,
-    _T_LAYOUT,
-    _TRUNK_DOWN,
-    _TRUNK_UP,
-    C0A,
-    C_TOTAL,
-    CB_TOTAL,
-    FWD_STREAM,
-    RENDER_MACS,
     T_TOTAL,
-    _check_render,
-    _shade_plain,
-    _stages,
-    check_stream,
-    shade_scratch,
-    stream_matrices,
+    TRANSPOSED_LAYOUT,
+    TRUNK_LAYOUT,
+    W_TOTAL,
+    packs_of,
+    tile_shade_bwd,
     tile_shade_fwd,
-    weight_stream,
+    window_multires,
 )
 from ..models.embedders import fourier_embed
 from ..models.mlp import softplus100
@@ -80,61 +69,12 @@ BWD_ROWS = 128  # points a CTA of the backward kernel (csrc/cta_gemm.cuh TILE_M)
 WGRAD_STEP = 64  # points a pipeline stage of the weight-gradient kernel
 SUM_RUNS = 8  # runs of a chunk's CTAs whose partials fused_shade_bwd_kernel_sums adds in turn
 
-# The backward kernel's weight stream: every product's weights as the 32 KB
-# stages its shared-memory ring takes, in the order a CTA consumes them
-# (``ops/fused_render.py`` says how an entry is laid out).  It begins with the
-# forward's stream (``FWD_STREAM``: trunk, feature head, reverse pass, colour
-# MLP), which the recompute consumes in the same order; the colour pack's
-# transposes are made here.
-BWD_STREAM = (
-    *FWD_STREAM,                                            # 1: the recompute
-    "C4T", "C3T", "C2T", "C1T", ("C0aT", 16), "C0fT",       # 2: colour MLP backward
-    *_TRUNK_UP,                                             # 5: up the reverse chain
-    "feat_wT", *_TRUNK_DOWN,                                # 7: down the trunk
-)
-
 LAUNCHES = {"fused_shade_train.fwd": 0, "fused_shade_train.bwd": 0}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _views(flat: torch.Tensor, layout: tuple) -> dict:
-    out, off = {}, 0
-    for name, r, c in layout:
-        out[name] = flat[off:off + r * c].view(r, c)
-        off += r * c
-    return out
-
-
-def _unpack(tw_b, tw_f, bw_b, cw_b, cw_f) -> tuple:
-    """The five flat buffers -> (trunk pack, transposed pack, colour pack)
-    dicts with named views, as the pack builders return them."""
-    tw = {"bf16": tw_b, "f32": tw_f, **_views(tw_b, _LAYOUT), "bias": tw_f[:8 * H].view(8, H),
-          "head_w": tw_f[8 * H:9 * H], "head_b": tw_f[9 * H]}
-    bw = {"bf16": bw_b, **_views(bw_b, _T_LAYOUT)}
-    cw = {"bf16": cw_b, "f32": cw_f, **_views(cw_b, _C_LAYOUT), "cbias": cw_f.view(5, H)}
-    return tw, bw, cw
-
-
-@torch.no_grad()
-def tile_shade_bwd(tw: dict, bw: dict, cw: dict) -> torch.Tensor:
-    """The backward kernel's weight stream (``BWD_STREAM``): a flat bf16
-    buffer of 32 KB stages, whose first ``N_FWD_SLABS`` are
-    ``tile_shade_fwd``'s.  Copies of the packs' entries, no rounding; no
-    gradient flows through it (the kernel returns the weights' gradients in
-    the packs' layout)."""
-    c4 = torch.zeros((16, H), dtype=torch.bfloat16, device=cw["bf16"].device)
-    c4[:8] = cw["C4"]
-    mats = {**stream_matrices(tw, bw, cw), "feat_wT": bw["feat_w"].t(),
-            "C0aT": cw["C0a"].t(), "C0fT": cw["C0f"].t(), "C1T": cw["C1"].t(),
-            "C2T": cw["C2"].t(), "C3T": cw["C3"].t(), "C4T": c4.t()}
-    return weight_stream(mats, BWD_STREAM)
-
-
-N_BWD_SLABS = sum(map(_stages, BWD_STREAM))
 
 
 # --------------------------------------------------------------------------
@@ -145,7 +85,7 @@ def shade_train_plain(xc, jinv9, fb0, window, tw, bw, cw):
     """Forward: xc (B, N, 3), jinv9 (B, N, 9) row-major, fb0 (B, 256), the
     three packs -> (sdf (B, N), rgb (B, N, 3), normal (B, N, 3)),
     differentiable in every tensor but the window."""
-    return _shade_plain(xc, jinv9, window, tw, bw, cw, fb0, eps=1e-12)
+    return shade_plain(xc, jinv9, window, tw, bw, cw, fb0, eps=1e-12)
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -155,7 +95,7 @@ def _bf(x: torch.Tensor) -> torch.Tensor:
 def _emb_columns(window: torch.Tensor, x: torch.Tensor) -> tuple:
     """Per embedding column: coordinate, frequency, the forward derivative's
     factor (1, cos, -sin of the argument) and that factor's derivative."""
-    L = _multires(window)
+    L = window_multires(window)
     dev = x.device
     dims = torch.tensor([0, 1, 2] + [0, 1, 2] * (2 * L), device=dev)
     freq = torch.tensor([1.0] * 3 + [2.0 ** k for k in range(L) for _ in range(6)], device=dev)
@@ -183,13 +123,13 @@ def shade_train_bwd_plain(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nr
     gn = g_nrm.reshape(R, 3).float()
     frame = torch.arange(R, device=x.device) // N
     E = window.shape[0]
-    W = {k: tw[k].float() for k, _, _ in _LAYOUT}
-    WT = {k: bw[k].float() for k, _, _ in _T_LAYOUT}
-    C = {k: cw[k].float() for k, _, _ in _C_LAYOUT}
+    W = {k: tw[k].float() for k, _, _ in TRUNK_LAYOUT}
+    WT = {k: bw[k].float() for k, _, _ in TRANSPOSED_LAYOUT}
+    C = {k: cw[k].float() for k, _, _ in COLOR_LAYOUT}
     bias, head_w, cb = tw["bias"], tw["head_w"], cw["cbias"]
 
     # 1. recompute: trunk (s_l, h_l in bf16), feature head, reverse pass
-    emb = fourier_embed(x, _multires(window)) * window
+    emb = fourier_embed(x, window_multires(window)) * window
     e16 = _bf(torch.nn.functional.pad(emb, (0, EMB_PAD - E)))
     S, S32, Hh = [], [], []
     h = e16
@@ -302,10 +242,10 @@ def shade_train_bwd_plain(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nr
         "xc": xb.reshape(B, N, 3),
         "jinv9": djinv.reshape(B, N, 9),
         "fb0": torch.zeros((B, H), device=x.device).index_add_(0, frame, dl[0]),
-        "tw_b": flat(dW, _LAYOUT),
+        "tw_b": flat(dW, TRUNK_LAYOUT),
         "tw_f": torch.cat([torch.stack(A32).sum(1).reshape(-1), hw.sum(0), gs.sum()[None]]),
-        "bw_b": flat(dWT, _T_LAYOUT),
-        "cw_b": flat(dC, _C_LAYOUT),
+        "bw_b": flat(dWT, TRANSPOSED_LAYOUT),
+        "cw_b": flat(dC, COLOR_LAYOUT),
         "cw_f": dcb.reshape(-1),
     }
 
@@ -318,7 +258,7 @@ def _check_inputs(xc, jinv9, fb0, window, tw, bw, cw) -> int:
     B, N = xc.shape[:2]
     _cuda.check(xc, "xc", (B, N, 3))
     _cuda.check(jinv9, "jinv9", (B, N, 9))
-    return _check_render(window, tw, bw, cw, fb0, B)
+    return check_render(window, tw, bw, cw, fb0, B)
 
 
 def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, slabs=None) -> tuple:
@@ -335,7 +275,7 @@ def shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, slabs=None) -> tupl
                  for s in ((B, N), (B, N, 3), (B, N, 3)))
     scratch, ctas = shade_scratch(B * N, dev)
     _cuda.launch("hold_fused_shade_fwd",
-                 *_ptr(xc, jinv9, fb0, window, slabs, tw["f32"], cw["f32"], scratch, *outs),
+                 *_cuda.ptrs(xc, jinv9, fb0, window, slabs, tw["f32"], cw["f32"], scratch, *outs),
                  B, N, multires, ctas)
     LAUNCHES["fused_shade_train.fwd"] += 1
     return outs
@@ -396,7 +336,7 @@ def shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, g_sdf, g_rgb, g_nrm
              "cw_b": torch.zeros(C_TOTAL, device=dev), "cw_f": torch.zeros(CB_TOTAL, device=dev)}
     for c0, rows, splits in chunks:
         _cuda.launch("hold_fused_shade_bwd",
-                     *_ptr(xc, jinv9, fb0, window, g_sdf, g_rgb, g_nrm, tw["f32"], cw["f32"],
+                     *_cuda.ptrs(xc, jinv9, fb0, window, g_sdf, g_rgb, g_nrm, tw["f32"], cw["f32"],
                            slabs, wsb, wsf, grads["xc"], grads["jinv9"], grads["tw_b"],
                            grads["tw_f"], grads["bw_b"], grads["cw_b"], grads["cw_f"],
                            grads["fb0"], part),
@@ -413,14 +353,14 @@ class _FusedShadeTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xc, jinv9, fb0, window, tw_b, tw_f, bw_b, cw_b, cw_f):
         ctx.save_for_backward(xc, jinv9, fb0, window, tw_b, tw_f, bw_b, cw_b, cw_f)
-        tw, bw, cw = _unpack(tw_b, tw_f, bw_b, cw_b, cw_f)
+        tw, bw, cw = packs_of(tw_b, tw_f, bw_b, cw_b, cw_f)
         ctx.slabs = None
         if xc.is_cuda:
             # one weight stream a call: the forward reads its first stages,
             # the backward all of them
             ctx.slabs = tile_shade_bwd(tw, bw, cw)
             return shade_train_fwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, ctx.slabs)
-        _require_cpu(xc)
+        _cuda.require_cpu(xc)
         return shade_train_plain(xc, jinv9, fb0, window, tw, bw, cw)
 
     @staticmethod
@@ -430,11 +370,11 @@ class _FusedShadeTrain(torch.autograd.Function):
         cts = [torch.zeros(s, dtype=torch.float32, device=xc.device) if g is None
                else g.float().contiguous()
                for g, s in ((g_sdf, (B, N)), (g_rgb, (B, N, 3)), (g_nrm, (B, N, 3)))]
-        tw, bw, cw = _unpack(*bufs)
+        tw, bw, cw = packs_of(*bufs)
         if xc.is_cuda:
             gr = shade_train_bwd_cuda(xc, jinv9, fb0, window, tw, bw, cw, *cts, ctx.slabs)
         else:
-            _require_cpu(xc)
+            _cuda.require_cpu(xc)
             gr = shade_train_bwd_plain(xc, jinv9, fb0, window, tw, bw, cw, *cts)
         packs = [gr[k].to(t.dtype) for k, t in zip(("tw_b", "tw_f", "bw_b", "cw_b", "cw_f"), bufs)]
         return (gr["xc"].to(xc.dtype), gr["jinv9"].to(jinv9.dtype), gr["fb0"].to(fb0.dtype), None,

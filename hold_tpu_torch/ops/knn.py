@@ -88,11 +88,6 @@ LAUNCHES = {
 }
 
 
-def _require_cpu(t: torch.Tensor) -> None:
-    if t.device.type != "cpu":
-        raise ValueError(f"no kernel or plain path for device {t.device}")
-
-
 def tile_order(verts: torch.Tensor) -> torch.Tensor:
     """The kernels' vertex order for a vertex set (V, 3): tiles of TILE_V
     consecutive vertices that lie close in space, by recursive median
@@ -195,7 +190,7 @@ def _pairwise_sqdist(pts: torch.Tensor, verts: torch.Tensor) -> torch.Tensor:
     return torch.clamp(d2, min=0.0)
 
 
-def _blend_plain(pts, verts, skin_weights, K):
+def blend_plain(pts, verts, skin_weights, K):
     """Threshold-form KNN blend: (weights (B,P,J), min d2 (B,P)), detached."""
     with torch.no_grad():
         d2 = _pairwise_sqdist(pts, verts)
@@ -215,7 +210,7 @@ def _outlier(dmin: torch.Tensor, max_dist: float) -> torch.Tensor:
 
 def blend_weights_plain(pts, verts, skin_weights, K=15, max_dist=0.1):
     """Plain version of the blend kernel: (weights (B,P,J), outlier (B,P))."""
-    w, dmin = _blend_plain(pts, verts, skin_weights, K)
+    w, dmin = blend_plain(pts, verts, skin_weights, K)
     return w, _outlier(dmin, max_dist)
 
 
@@ -236,7 +231,7 @@ def skinning_jacobian(w: torch.Tensor, tfs: torch.Tensor) -> torch.Tensor:
 def inverse_warp_plain(pts, verts, skin_weights, tfs, K=15, max_dist=0.1):
     """Plain version of kernels 1 and 2: (x_c (B,P,3), outlier (B,P)).
     Differentiable w.r.t. ``pts`` and ``tfs`` (the blend is detached)."""
-    w, dmin = _blend_plain(pts, verts, skin_weights, K)
+    w, dmin = blend_plain(pts, verts, skin_weights, K)
     return skinning(pts, w, tfs, inverse=True), _outlier(dmin, max_dist)
 
 
@@ -244,7 +239,7 @@ def jacobian_inverse_plain(pts_c, verts_c, skin_weights, tfs, K=15):
     """Plain version of kernel 3: (B,P,9) row-major J^-1, differentiable
     w.r.t. ``tfs`` only."""
     B, P = pts_c.shape[:2]
-    w, _ = _blend_plain(pts_c, verts_c, skin_weights, K)
+    w, _ = blend_plain(pts_c, verts_c, skin_weights, K)
     return inverse_mat3(skinning_jacobian(w, tfs)).reshape(B, P, 9)
 
 
@@ -467,7 +462,7 @@ def knn_blend_weights(pts, verts, skin_weights, K: int = 15, max_dist: float = 0
     args = [t.detach() for t in (pts, verts, skin_weights)]
     if pts.is_cuda:
         return _blend_cuda(*args, K, max_dist, False, order)
-    _require_cpu(pts)
+    _cuda.require_cpu(pts)
     return blend_weights_plain(*args, K, max_dist)
 
 
@@ -477,7 +472,7 @@ def knn_blend_weights_t(pts, verts, skin_weights, K: int = 15, max_dist: float =
     args = [t.detach() for t in (pts, verts, skin_weights)]
     if pts.is_cuda:
         return _blend_cuda(*args, K, max_dist, True, order)
-    _require_cpu(pts)
+    _cuda.require_cpu(pts)
     w, outlier = blend_weights_plain(*args, K, max_dist)
     return w.transpose(1, 2).contiguous(), outlier
 
@@ -492,7 +487,7 @@ def knn_inverse_warp(pts, verts, skin_weights, tfs, K: int = 15,
             *args, K, max_dist, False, "knn_inverse_warp", order
         )
         return xc, outlier
-    _require_cpu(pts)
+    _cuda.require_cpu(pts)
     check_order_length(order, verts.shape[1])
     with torch.no_grad():
         return inverse_warp_plain(*args, K=K, max_dist=max_dist)
@@ -505,7 +500,7 @@ def knn_inverse_warp_diff(pts, verts, skin_weights, tfs, K: int = 15,
     verts, skin_weights = verts.detach(), skin_weights.detach()
     if pts.is_cuda:
         return _InverseWarpDiff.apply(pts, verts, skin_weights, tfs, K, max_dist, order)
-    _require_cpu(pts)
+    _cuda.require_cpu(pts)
     return inverse_warp_plain(pts, verts, skin_weights, tfs, K, max_dist)
 
 
@@ -516,7 +511,7 @@ def knn_jacobian_inverse(pts_c, verts_c, skin_weights, tfs, K: int = 15, *, orde
     skin_weights = skin_weights.detach()
     if pts_c.is_cuda:
         return _JacobianInverse.apply(pts_c, verts_c, skin_weights, tfs, K, order)
-    _require_cpu(pts_c)
+    _cuda.require_cpu(pts_c)
     return jacobian_inverse_plain(pts_c, verts_c, skin_weights, tfs, K)
 
 

@@ -2,7 +2,7 @@
 
     python -m hold_tpu_torch.render_cli --exp <log dir> --case <seq> [--render_downsample 2]
         [--pixel_per_batch 4096] [--agent_id 0 --num_agents 1] [--out DIR]
-        [--export_root exports] [--device cuda|cpu] [--no_fused_render]
+        [--export_root exports] [--device cuda|cpu]
 
 Counterpart of hold_tpu/render_cli.py.  Loads a run that
 ``hold_tpu_torch.train`` wrote (``utils/checkpoint.load_experiment``),
@@ -10,10 +10,8 @@ renders this agent's share of the sequence's frames and writes, per frame,
 the panel ``<out>/<idx>.png`` (default ``<exp>/renders``: gt | rgb |
 foreground | normal | instances) and the fp16 normal map
 ``<export_root>/<exp name>/normal/<idx>.npy``.  It runs on the card unless
-asked for the CPU; ``--no_fused_render`` shades with the chunked grad-stage
-shade instead of the fused render kernels (the JAX package's
-``HOLD_NO_FUSED_RENDER=1``).  Canonical meshes are not ported: the render
-path does not need them.
+asked for the CPU.  Canonical meshes are not ported: the render path does
+not need them.
 
 Like the JAX CLI, which shards each chunk's pixels over every local device
 (``make_mesh(0)``), it renders over every local card: one process a card
@@ -63,7 +61,6 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default="")
     ap.add_argument("--export_root", default="exports")
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
-    ap.add_argument("--no_fused_render", action="store_true")
     return ap
 
 
@@ -83,8 +80,7 @@ def render_frames(args, device, split=None) -> list[dict]:
     world = 1 if split is None else split.world
     writes = split is None or split.rank == 0
     seq = SequenceData.from_build_dir(args.case, args.data_root)
-    params, scene, _ = load_experiment(args.exp, seq, device,
-                                       fused_render=not args.no_fused_render)
+    params, scene, _ = load_experiment(args.exp, seq, device)
     out_dir = args.out or os.path.join(args.exp, "renders")
     norm_dir = os.path.join(args.export_root, os.path.basename(args.exp.rstrip("/")), "normal")
     if writes:

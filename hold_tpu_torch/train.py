@@ -2,12 +2,10 @@
 
 Counterpart of hold_tpu/train.py on PyTorch: each step runs the error-bound
 sampler under ``torch.no_grad()`` (its queries through the fused query
-kernel; ``--no_fused_sampler`` queries the trunk layer by layer), then the
-render + loss + backward grad stage (each node's shade through the fused
-training shade's kernels; ``--no_fused_train`` runs the chunked shade with
-its double backward instead, each chunk recomputed in the backward unless
-``--no_remat``, its products in bf16 on the card unless ``--shade_f32``,
-``--shade_chunk`` points a chunk) and one Adam step.  Adam has the reference's two
+kernel), then the render + loss + backward grad stage (each node's shade
+through the fused training shade's kernels) and one Adam step; a node whose
+nets the kernels do not take queries its trunk layer by layer and shades
+chunk by chunk (``models/holdnet.py build_scene``).  Adam has the reference's two
 learning-rate groups (pose tables at 0.1x lr) and, for the proposal nets, a
 third at ``model.proposal.lr``; the object scale stays fixed.  The proposal
 nets (on unless ``--no_proposal``) learn the trunk's sdf from the first step
@@ -89,7 +87,7 @@ from .utils.checkpoint import (
     save_misc,
     training_state,
 )
-from .utils.config import parse_args, resolve_device, sampler_flags, shade_flags
+from .utils.config import parse_args, resolve_device, sampler_flags
 from .utils.convert import detached_copy, flatten_params
 from .utils.logger import Tracker, make_exp_key
 from .utils.metrics import psnr, psnr_from_mse
@@ -285,11 +283,7 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     if fast:
         opt_model["ray_sampler"] = dict(opt_model["ray_sampler"], **FAST_SAMPLER)
     seed = int(args.get("seed", 0))
-    scene = build_scene(opt_model, dict(args), seq.scene_data(), device,
-                        fused_sampler=not args.get("no_fused_sampler", False),
-                        fused_train=not args.get("no_fused_train", False),
-                        remat=not args.get("no_remat", False), **sampler_flags(args),
-                        **shade_flags(args))
+    scene = build_scene(opt_model, dict(args), seq.scene_data(), device, **sampler_flags(args))
     params = init_scene_params(torch.Generator().manual_seed(seed), scene, seq.scene_data())
     mesh_state = empty_object_mesh_state(device)
 
@@ -299,7 +293,7 @@ def run_training(args, cfg, seq: SequenceData | None = None, max_steps: int | No
     tracker = Tracker(args.log_root, exp_key, args=args, mute=args.get("mute"), active=rank0)
     log = tracker.logger
     fused = [nid for nid in scene.node_ids if scene.plans[nid].fused_query]
-    shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_train]
+    shade = [nid for nid in scene.node_ids if scene.plans[nid].fused_shade]
     warmup = proposal_schedule(scene)
     log.info(f"experiment {tracker.exp_key}: case={args.case} nodes={scene.node_ids} "
              f"frames={seq.n_frames} device={device} fused sampler={fused} "

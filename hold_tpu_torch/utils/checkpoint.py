@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..models.holdnet import build_scene, init_scene_params
-from .config import sampler_flags, shade_flags
+from .config import sampler_flags
 from .convert import flatten_params, map_params
 
 
@@ -134,17 +134,15 @@ def load_params_subset(path: str, params: dict, predicate) -> dict:
     return merge_params(params, read_checkpoint(path)["params"], predicate)
 
 
-def load_experiment(exp_dir: str, seq, device, fused_render: bool = True,
-                    ckpt: str | None = None, shade_f32: bool | None = None):
+def load_experiment(exp_dir: str, seq, device, ckpt: str | None = None):
     """Rebuild the scene of the run in ``exp_dir`` for sequence ``seq`` on
     ``device`` (with the run's sampler and the model config its checkpoint
-    holds) and load the checkpoint ``ckpt`` (default: the newest).
-    ``fused_render=False`` gives the chunked render shade.  The run's
-    proposal and sampler flags build the scene it trained (a run with the
-    proposal on keeps its nets; none of the loaders samples in proposal
-    mode, as in the JAX package); so do its ``--shade_f32`` and
-    ``--shade_chunk`` the chunked shade's, unless ``shade_f32`` is given.
-    Returns (params, scene, step)."""
+    holds) and load the checkpoint ``ckpt`` (default: the newest).  The
+    run's proposal and sampler flags build the scene it trained (a run with
+    the proposal on keeps its nets; none of the loaders samples in proposal
+    mode, as in the JAX package); every other key of its ``args.json`` is
+    ignored, and each node's paths follow from its nets
+    (``build_scene``).  Returns (params, scene, step)."""
     with open(os.path.join(exp_dir, "args.json")) as f:
         args = json.load(f)
     ckpt = ckpt or latest_checkpoint(exp_dir)
@@ -153,12 +151,7 @@ def load_experiment(exp_dir: str, seq, device, fused_render: bool = True,
     state = read_checkpoint(ckpt)
     opt_model = dict(state["model"])
     opt_model["scene_bounding_sphere"] = seq.scene_bounding_sphere
-    shade = shade_flags(args)
-    if shade_f32 is not None:
-        shade["shade_f32"] = shade_f32
-    scene = build_scene(opt_model, args, seq.scene_data(), device,
-                        fused_sampler=not args.get("no_fused_sampler", False),
-                        fused_render=fused_render, **sampler_flags(args), **shade)
+    scene = build_scene(opt_model, args, seq.scene_data(), device, **sampler_flags(args))
     params = init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
     saved = state["params"]
     flat = flatten_params(params)

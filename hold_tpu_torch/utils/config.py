@@ -18,7 +18,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..ops.chunk import DEFAULT_CHUNK
 
 
 class Cfg(dict):
@@ -156,9 +155,8 @@ def build_argparser() -> argparse.ArgumentParser:
     """Training CLI flags — surface parity with code/src/utils/parser.py:13-70
     and every flag of the JAX package's, with its defaults; the port adds
     ``--seed``, ``--device`` and, for the JAX package's environment switches,
-    ``--no_fused_sampler``, ``--no_fused_train``, ``--no_remat``,
-    ``--no_proposal``, ``--node_bounds``, ``--sampler_knn_stride``,
-    ``--sampler_relu``, ``--shade_f32`` and ``--shade_chunk``.  The
+    ``--no_proposal``, ``--node_bounds``, ``--sampler_knn_stride`` and
+    ``--sampler_relu``.  The
     multi-process flags keep the JAX names with the port's meaning: ``--num_devices`` local processes, one a card (0: every
     card; with ``--device cpu``, gloo processes on the CPU), or with
     ``--coordinator`` one process of ``--num_processes`` (rank
@@ -201,11 +199,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--seed", type=int, default=0)
-    # the JAX package's HOLD_NO_FUSED_SAMPLER=1: sampler queries layer by layer
-    p.add_argument("--no_fused_sampler", action="store_true")
-    p.add_argument("--no_fused_train", action="store_true")
-    # HOLD_NO_REMAT=1: the chunked shade keeps every chunk's graph
-    p.add_argument("--no_remat", action="store_true")
     # the sampler's knobs, off by default as in the JAX package:
     # HOLD_NO_PROPOSAL=1: no proposal net, the sampler queries the trunk always
     p.add_argument("--no_proposal", action="store_true")
@@ -215,11 +208,6 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--sampler_knn_stride", type=int, default=1)
     # HOLD_SAMPLER_RELU=1: relu hidden layers in the fused sampler query
     p.add_argument("--sampler_relu", action="store_true")
-    # HOLD_SHADE_F32=1: the chunked shade in float32 on the card too (its
-    # default there is bf16 products, as the JAX package's on its accelerator)
-    p.add_argument("--shade_f32", action="store_true")
-    # HOLD_SHADE_CHUNK: points a chunk of the chunked shade
-    p.add_argument("--shade_chunk", type=int, default=DEFAULT_CHUNK)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default; fails without a card) or cpu")
     return p
@@ -232,13 +220,6 @@ def sampler_flags(args) -> dict:
             "node_bounds": bool(args.get("node_bounds", False)),
             "sampler_knn_stride": int(args.get("sampler_knn_stride", 1) or 1),
             "sampler_relu": bool(args.get("sampler_relu", False))}
-
-
-def shade_flags(args) -> dict:
-    """``build_scene``'s chunked-shade keywords from the flags: float32 when
-    ``--shade_f32``, else the device's rule (None); the chunk size."""
-    return {"shade_f32": True if args.get("shade_f32", False) else None,
-            "shade_chunk": int(args.get("shade_chunk", DEFAULT_CHUNK) or DEFAULT_CHUNK)}
 
 
 def resolve_device(device=None) -> torch.device:

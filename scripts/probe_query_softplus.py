@@ -34,12 +34,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from hold_tpu_torch.models.embedders import embed_window  # noqa: E402
 from hold_tpu_torch.models.mlp import (  # noqa: E402
     implicit_net_shapes, init_implicit_net, resolve_weight_norm,
 )
 from hold_tpu_torch.models.specs import OBJECT_SPECS  # noqa: E402
 from hold_tpu_torch.ops import _cuda  # noqa: E402
 from hold_tpu_torch.ops import fused_query as fq  # noqa: E402
+from hold_tpu_torch.ops import weight_pack as wp  # noqa: E402
 from hold_tpu_torch.utils.config import DEFAULT_CONFIG  # noqa: E402
 
 FAST = "return fmaxf(x, 0.0f) + __logf(1.0f + __expf(-fabsf(100.0f * x))) * 0.01f;"
@@ -98,10 +100,10 @@ def main() -> int:
     res = resolve_weight_norm(init_implicit_net(torch.Generator().manual_seed(6), opt,
                                                 OBJECT_SPECS))
     with torch.no_grad():
-        pack = fq.pack_trunk_weights(
+        pack = wp.pack_trunk_weights(
             {"layers": [{k: v.to(dev) for k, v in l.items()} for l in res["layers"]]}, plan)
-    tiled = fq.tile_for_kernel(pack)
-    window = fq.embed_window(plan, 900, (100, 2000), dev)
+    tiled = wp.tile_trunk(pack)
+    window = embed_window(plan, 900, (100, 2000), dev)
     B, P, S = 10, 128, 128
     g = torch.Generator(dev).manual_seed(0)
     dirs = torch.nn.functional.normalize(torch.randn(B * P, 3, generator=g, device=dev), dim=-1)
@@ -126,7 +128,7 @@ def main() -> int:
             def run():
                 rc = fn(dirs.data_ptr(), cam.data_ptr(), z.data_ptr(), tf12.data_ptr(),
                         window.data_ptr(), tiled.data_ptr(), pack["f32"].data_ptr(),
-                        emb.data_ptr(), out.data_ptr(), B, P, S, fq._multires(window), 0,
+                        emb.data_ptr(), out.data_ptr(), B, P, S, wp.window_multires(window), 0,
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")

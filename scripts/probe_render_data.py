@@ -44,14 +44,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 3
+    from hold_tpu_torch.models.embedders import embed_window
     from hold_tpu_torch.models.holdnet import _object_render_opt
     from hold_tpu_torch.models.mlp import (
         implicit_net_shapes, init_implicit_net, init_rendering_net, resolve_weight_norm,
     )
     from hold_tpu_torch.models.specs import OBJECT_SPECS
     from hold_tpu_torch.ops import _cuda
-    from hold_tpu_torch.ops import fused_query as fq
     from hold_tpu_torch.ops import fused_render as fr
+    from hold_tpu_torch.ops import weight_pack as wp
     from hold_tpu_torch.utils.config import DEFAULT_CONFIG
 
     if opts.ftz:
@@ -76,11 +77,11 @@ def main() -> int:
     rend = resolved(resolve_weight_norm(init_rendering_net(g, _object_render_opt(model),
                                                            OBJECT_SPECS)))
     with torch.no_grad():
-        pack = fq.pack_trunk_weights(imp, iplan)
-        packs = (fq.embed_window(iplan, None, (0, 1), dev), pack,
-                 fr.pack_trunk_transposed(imp, iplan, pack), fr.pack_color_weights(rend, imp))
+        pack = wp.pack_trunk_weights(imp, iplan)
+        packs = (embed_window(iplan, None, (0, 1), dev), pack,
+                 wp.pack_trunk_transposed(imp, iplan, pack), wp.pack_color_weights(rend, imp))
         if hasattr(fr, "tile_shade_fwd"):  # the weight stream, made once as the render makes it
-            packs[3]["stream"] = fr.tile_shade_fwd(*packs[1:])
+            packs[3]["stream"] = wp.tile_shade_fwd(*packs[1:])
     rng = np.random.RandomState(0)
     unit = torch.tensor(rng.randn(1, N, 3).astype(np.float32), device=dev)
     tf12 = torch.tensor([[1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]], device=dev)

@@ -47,14 +47,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from hold_tpu_torch.models.embedders import embed_window  # noqa: E402
 from hold_tpu_torch.models.mlp import (  # noqa: E402
     implicit_net_shapes, init_implicit_net, init_rendering_net, resolve_weight_norm,
 )
 from hold_tpu_torch.models.specs import MANO_SPECS  # noqa: E402
 from hold_tpu_torch.ops import _cuda  # noqa: E402
-from hold_tpu_torch.ops import fused_query as fq  # noqa: E402
-from hold_tpu_torch.ops import fused_render as fr  # noqa: E402
 from hold_tpu_torch.ops import fused_shade as fs  # noqa: E402
+from hold_tpu_torch.ops import weight_pack as wp  # noqa: E402
 from hold_tpu_torch.utils.config import DEFAULT_CONFIG  # noqa: E402
 
 # lines of fused_shade.cu, each unique in it
@@ -91,7 +91,7 @@ VARIANTS = {
                   (SP_BF, SP_BF + "\n    shade::softplus_sigmoid(a, h, s);\n    return true;")],
 }
 # a kernel's time goes to the first of these its name holds
-KERNELS = ("fused_shade_bwd_kernel_sums", "fused_shade_bwd_kernel", "wgrad_kernel", "colsum_kernel")
+KERNELS = ("fused_shade_bwd_kernel_sums", "fused_shade_bwd_kernel", "wgrad_kernel")
 
 
 def to_device(tree, dev):
@@ -160,10 +160,10 @@ def main() -> int:
     rend = to_device(resolve_weight_norm(init_rendering_net(g, model["rendering_network"],
                                                             MANO_SPECS)), dev)
     with torch.no_grad():
-        tw = fq.pack_trunk_weights(imp, iplan)
-        bw = fr.pack_trunk_transposed(imp, iplan, tw)
-        cw = fr.pack_color_weights(rend, imp)
-    window = fq.embed_window(iplan, None, (0, 1), dev)
+        tw = wp.pack_trunk_weights(imp, iplan)
+        bw = wp.pack_trunk_transposed(imp, iplan, tw)
+        cw = wp.pack_color_weights(rend, imp)
+    window = embed_window(iplan, None, (0, 1), dev)
     B, N = 10, 12544
     rng = np.random.RandomState(B)
 
@@ -173,15 +173,15 @@ def main() -> int:
     ins = [f32(rng.randn(B, N, 3) * 0.1), f32(np.eye(3).reshape(9) + rng.randn(B, N, 9) * 0.05),
            f32(rng.randn(B, 256) * 0.1), window,
            *(f32(rng.randn(*s)) for s in ((B, N), (B, N, 3), (B, N, 3))), tw["f32"], cw["f32"],
-           fs.tile_shade_bwd(tw, bw, cw)]
+           wp.tile_shade_bwd(tw, bw, cw)]
     cap, chunks = fs.bwd_chunks(B * N)
     lib = _cuda.lib()
     kmax = fs.frame_slots(B, N)
     ws = [torch.empty(cap * lib.hold_fused_shade_ws_cols(0), dtype=torch.bfloat16, device=dev),
           torch.empty(cap * lib.hold_fused_shade_ws_cols(1), dtype=torch.float32, device=dev)]
     outs = [torch.zeros(s, device=dev) for s in (
-        (B, N, 3), (B, N, 9), (fq.W_TOTAL,), (fq.F_TOTAL,), (fr.T_TOTAL,), (fr.C_TOTAL,),
-        (fr.CB_TOTAL,), (B, 256))]
+        (B, N, 3), (B, N, 9), (wp.W_TOTAL,), (wp.F_TOTAL,), (wp.T_TOTAL,), (wp.C_TOTAL,),
+        (wp.CB_TOTAL,), (B, 256))]
     part = torch.empty(cap // fs.BWD_ROWS * lib.hold_fused_shade_part_cols(kmax), device=dev)
     ptrs = [t.data_ptr() for t in (*ins, *ws, *outs)]
     fns = {}
@@ -206,7 +206,7 @@ def main() -> int:
 
             def run():
                 for c0, rows, splits in chunks:
-                    rc = fn(*p, B * N, N, c0, rows, cap, fq._multires(window), splits, *extra,
+                    rc = fn(*p, B * N, N, c0, rows, cap, wp.window_multires(window), splits, *extra,
                             torch.cuda.current_stream().cuda_stream)
                     if rc:
                         raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -41,13 +41,14 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from hold_tpu_torch.models.embedders import embed_window  # noqa: E402
 from hold_tpu_torch.models.mlp import (  # noqa: E402
     implicit_net_shapes, init_implicit_net, init_rendering_net, resolve_weight_norm,
 )
 from hold_tpu_torch.models.specs import MANO_SPECS  # noqa: E402
 from hold_tpu_torch.ops import _cuda  # noqa: E402
-from hold_tpu_torch.ops import fused_query as fq  # noqa: E402
 from hold_tpu_torch.ops import fused_render as fr  # noqa: E402
+from hold_tpu_torch.ops import weight_pack as wp  # noqa: E402
 from hold_tpu_torch.utils.config import DEFAULT_CONFIG  # noqa: E402
 
 # lines of shade_common.cuh, each unique in it
@@ -122,10 +123,10 @@ def main() -> int:
     rend = to_device(resolve_weight_norm(init_rendering_net(g, model["rendering_network"],
                                                             MANO_SPECS)), dev)
     with torch.no_grad():
-        tw = fq.pack_trunk_weights(imp, iplan)
-        bw = fr.pack_trunk_transposed(imp, iplan, tw)
-        cw = fr.pack_color_weights(rend, imp)
-    window = fq.embed_window(iplan, None, (0, 1), dev)
+        tw = wp.pack_trunk_weights(imp, iplan)
+        bw = wp.pack_trunk_transposed(imp, iplan, tw)
+        cw = wp.pack_color_weights(rend, imp)
+    window = embed_window(iplan, None, (0, 1), dev)
     B, N = 10, 12544
     rng = np.random.RandomState(B)
 
@@ -135,7 +136,7 @@ def main() -> int:
     scratch, ctas = fr.shade_scratch(B * N, dev)
     outs = [torch.empty(s, device=dev) for s in ((B, N), (B, N, 3), (B, N, 3))]
     ins = [f32(rng.randn(B, N, 3) * 0.1), f32(np.eye(3).reshape(9) + rng.randn(B, N, 9) * 0.05),
-           f32(rng.randn(B, 256) * 0.1), window, fr.tile_shade_fwd(tw, bw, cw), tw["f32"],
+           f32(rng.randn(B, 256) * 0.1), window, wp.tile_shade_fwd(tw, bw, cw), tw["f32"],
            cw["f32"], scratch, *outs]
     ptrs = [t.data_ptr() for t in ins]
     base = None
@@ -152,7 +153,7 @@ def main() -> int:
             fn.restype = ctypes.c_int
 
             def run():
-                rc = fn(*ptrs, B, N, fq._multires(window), ctas,
+                rc = fn(*ptrs, B, N, wp.window_multires(window), ctas,
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -152,3 +152,38 @@ def test_subset_loads_select_what_jax_selects(flag, two_hand_params, tmp_path):
         assert any(k.startswith("left/") for k in chosen)
     else:
         assert chosen == {k for k in got if "/tables/" in k or k.endswith("/obj_scale")}
+
+
+def test_args_json_with_the_removed_path_keys_loads_the_default_paths(tmp_path):
+    """A run written before the path switches went keeps them in its
+    args.json: ``load_experiment`` ignores them and rebuilds each node's
+    paths from its nets (full width: the fused query and the fused shade)."""
+    import copy
+    import json
+
+    from hold_tpu_torch.utils.config import DEFAULT_CONFIG
+
+    built = generate_sequence(None, n_frames=3, img_hw=(48, 64))
+    seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=8)
+    model = copy.deepcopy(DEFAULT_CONFIG["model"])
+    model["proposal"]["enabled"] = False
+    scene = thn.build_scene(dict(model, scene_bounding_sphere=seq.scene_bounding_sphere), ARGS,
+                            seq.scene_data(), "cpu")
+    params = thn.init_scene_params(torch.Generator().manual_seed(0), scene, seq.scene_data())
+    exp = str(tmp_path / "old_run")
+    tckpt.save_checkpoint(exp, 3, {"params": {k: v.detach()
+                                              for k, v in flatten_params(params).items()},
+                                   "step": 3, "model": model})
+    old = {**ARGS, "no_fused_sampler": True, "no_fused_train": True, "no_remat": True,
+           "shade_f32": True, "shade_chunk": 64}
+    with open(os.path.join(exp, "args.json"), "w") as f:
+        json.dump(old, f)
+    loaded, got, step = tckpt.load_experiment(exp, seq, "cpu")
+    assert step == 3
+    for nid in got.node_ids:
+        p, want = got.plans[nid], scene.plans[nid]
+        assert (p.fused_query, p.fused_shade, p.shade_bf16) == (True, True, False), nid
+        assert (p.implicit, p.rendering, p.sampler) == (want.implicit, want.rendering,
+                                                        want.sampler), nid
+    for k, t in flatten_params(params).items():
+        assert torch.equal(flatten_params(loaded)[k], t), k

@@ -15,11 +15,12 @@ in interpret mode.  Checked:
 - the z tables of the sampler stage, fused in both packages, at a tenth of
   the median sample spacing;
 - which configurations take the fused path;
-- the kernel-layout step (``tile_for_kernel``): a permutation of the pack with
-  zero pads, inverted bit for bit by ``untile_from_kernel``, one element of
-  each matrix at the place the layout documented in ``csrc/cta_gemm.cuh``
-  gives it, the graph kept under grad mode, and no trace of it in a pack that
-  went through a wrapper on the CPU.
+- the kernel's trunk stream (``ops/weight_pack.py`` ``tile_trunk``, one
+  ``weight_stream``): a permutation of the pack with zero pads, every element
+  at the place ``slab_offset`` gives it, one element of each matrix at the
+  place the layout documented in ``csrc/cta_gemm.cuh`` gives it, no graph
+  kept under grad mode, and no trace of it in a pack that went through a
+  wrapper on the CPU.
 
 The CUDA kernels are held against the plain versions on the card (marked
 ``gpu``; skipped without one).
@@ -49,8 +50,10 @@ from hold_tpu.utils.transforms import inverse_mat3 as j_inverse_mat3
 from hold_tpu_torch.data.dataset import SequenceData
 from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
+from hold_tpu_torch.models.embedders import embed_window
 from hold_tpu_torch.models.mlp import resolve_weight_norm
 from hold_tpu_torch.ops import fused_query as tfq
+from hold_tpu_torch.ops import weight_pack as wp
 from hold_tpu_torch.ops.knn import tile_order
 from hold_tpu_torch.train import batch_to_device
 from hold_tpu_torch.utils.convert import params_from_jax
@@ -81,7 +84,7 @@ def test_pack_and_window_match_jax(kind):
     jpack = jax.device_get(jfq.pack_trunk_weights(jres, plan))
     # the same resolved f32 weights on both sides: the pack must be exact
     with torch.no_grad():
-        tpack = tfq.pack_trunk_weights(params_from_jax(jax.device_get(jres)), plan)
+        tpack = wp.pack_trunk_weights(params_from_jax(jax.device_get(jres)), plan)
 
     def f32(t):
         return np.asarray(t.detach().float().numpy() if isinstance(t, torch.Tensor) else
@@ -89,7 +92,7 @@ def test_pack_and_window_match_jax(kind):
 
     # the port's own weight-norm resolve rounds a few weights differently
     # (its row norms sum in another order): at most one bf16 step apart
-    np.testing.assert_allclose(f32(tfq.pack_trunk_weights(tres, plan)["bf16"]),
+    np.testing.assert_allclose(f32(wp.pack_trunk_weights(tres, plan)["bf16"]),
                                f32(tpack["bf16"]), rtol=2**-7, atol=0)
 
     for name in ("W0", "W1", "W2", "W4e", "W5", "W6", "W7"):
@@ -102,7 +105,7 @@ def test_pack_and_window_match_jax(kind):
     np.testing.assert_array_equal(f32(tpack["head_w"]), np.asarray(jpack["head_w"])[0])
     assert float(tpack["head_b"]) == float(np.asarray(jpack["head_b"])[0, 0])
 
-    window = tfq.embed_window(plan, STEP, BARF)
+    window = embed_window(plan, STEP, BARF)
     ref = np.asarray(jfq.embed_plan(6, _jax_window(kind)))[:39, 3]
     np.testing.assert_allclose(window.numpy(), ref, rtol=1e-6, atol=1e-7)
     assert (kind == "hand") == bool((window.numpy() == 1.0).all())
@@ -135,9 +138,9 @@ def _query_case(kind, form, B=2, P=6, S=64):
     """(JAX result, port plain result) for one of the four entry points."""
     rng = np.random.RandomState({"hand": 1, "object": 2}[kind])
     plan, jres, tres = _net(kind, seed={"hand": 3, "object": 4}[kind])
-    jpack, tpack = jfq.pack_trunk_weights(jres, plan), tfq.pack_trunk_weights(tres, plan)
+    jpack, tpack = jfq.pack_trunk_weights(jres, plan), wp.pack_trunk_weights(tres, plan)
     plan_arr = jfq.embed_plan(6, _jax_window(kind))
-    window = tfq.embed_window(plan, STEP, BARF)
+    window = embed_window(plan, STEP, BARF)
     T = torch.tensor
     if kind == "hand":
         md = build_synthetic_mano(True)
@@ -235,8 +238,6 @@ def test_fused_sampler_configurations(toy):
     args = {"barf_s": 100, "barf_e": 2000}
     fused = thn.build_scene(model, args, sd, "cpu")
     assert all(p.fused_query for p in fused.plans.values())
-    off = thn.build_scene(model, args, sd, "cpu", fused_sampler=False)
-    assert not any(p.fused_query for p in off.plans.values())
     narrow = copy.deepcopy(model)
     narrow["implicit_network"]["dims"] = [64] * 8
     assert not any(p.fused_query for p in thn.build_scene(narrow, args, sd, "cpu").plans.values())
@@ -245,68 +246,64 @@ def test_fused_sampler_configurations(toy):
     short = copy.deepcopy(model)
     short["ray_sampler"]["N_samples_eval"] = 16
     assert all(p.fused_query for p in thn.build_scene(short, args, sd, "cpu").plans.values())
-    # the trunk products of the packed layout, the head, plus the warps
-    flops = tfq.sampler_query_flops_per_step(fused, 1280)
-    trunk = 2.0 * 483_584 * (64 * 2) * 1280  # MACs a point x points per step, one node
-    assert 2 * trunk < flops < 2.1 * trunk
-    assert tfq.sampler_query_flops_per_step(off, 1280) == 0.0
 
 
 @pytest.mark.parametrize("kind", ["hand", "object"])
 def test_kernel_layout_is_a_permutation_of_the_pack(kind):
     plan, _, tres = _net(kind, seed=3)
     with torch.no_grad():
-        pack = tfq.pack_trunk_weights(tres, plan)
-    tiled = tfq.tile_for_kernel(pack)
+        pack = wp.pack_trunk_weights(tres, plan)
+    tiled = wp.tile_trunk(pack)
     assert tiled.dtype == torch.bfloat16 and tiled.shape == (30 * 256 * 64,)
-    assert tfq.N_SLABS == 30 and tfq.SLAB == 16384
-    # the inverse gives the pack back, bit for bit
-    assert torch.equal(tfq.untile_from_kernel(tiled).view(torch.int16),
-                       pack["bf16"].view(torch.int16))
-    # a permutation plus zeros: the same multiset of bit patterns
-    bits = torch.sort(tiled.view(torch.int16)[tiled.view(torch.int16) != 0]).values
-    ref = pack["bf16"].view(torch.int16)
-    assert torch.equal(bits, torch.sort(ref[ref != 0]).values)
+    assert wp.N_SLABS == 30 and wp.SLAB == 16384
+    # every element of every matrix where slab_offset puts it, each place
+    # taken once, and zeros everywhere else
+    raw, taken, slab = tiled.view(torch.int16), torch.zeros(tiled.shape[0], dtype=torch.bool), 0
+    for name, rows, cols in wp.TRUNK_LAYOUT:
+        n, k = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
+        at = wp.slab_offset(slab + k // 64, n, k % 64).reshape(-1)
+        assert torch.equal(raw[at], pack[name].view(torch.int16).reshape(-1)), name
+        assert not taken[at].any()
+        taken[at] = True
+        slab += -(-cols // 64)
+    assert slab == wp.N_SLABS and int(taken.sum()) == wp.W_TOTAL
+    assert not raw[~taken].any()
     # one element of each matrix, by the header's formula written out: slab-major,
     # rows of 128 bytes, the row's 16-byte groups XOR-ed with the row number mod 8
     first = {"W0": 0, "W1": 1, "W2": 5, "W3": 9, "W4h": 13, "W4e": 17, "W5": 18, "W6": 22,
              "W7": 26}
     rng = np.random.RandomState(0)
-    raw = tiled.view(torch.int16)
-    for name, rows, cols in tfq._LAYOUT:
+    for name, rows, cols in wp.TRUNK_LAYOUT:
         n, k = int(rng.randint(rows)), int(rng.randint(cols))
         byte = (first[name] + k // 64) * 32768 + n * 128 + ((((k % 64) // 8) ^ (n % 8)) * 16) \
             + (k % 8) * 2
         assert raw[byte // 2] == pack[name].view(torch.int16)[n, k], name
-        assert tfq.slab_offset(first[name] + k // 64, n, k % 64) == byte // 2
+        assert wp.slab_offset(first[name] + k // 64, n, k % 64) == byte // 2
     # the 48-column matrices' slabs hold zeros in columns 48..63
     for name in ("W0", "W4e"):
-        slab = tiled[first[name] * tfq.SLAB:(first[name] + 1) * tfq.SLAB].view(256, 64)
+        slab = tiled[first[name] * wp.SLAB:(first[name] + 1) * wp.SLAB].view(256, 64)
         groups = torch.arange(8)[None, :] ^ (torch.arange(256)[:, None] % 8)  # logical k / 8
         assert not slab.view(256, 8, 8)[groups >= 6].any()
 
 
 def test_kernel_layout_keeps_the_graph_and_stays_off_the_cpu_path():
+    """The stream of a pack built under grad mode keeps no graph (the kernels
+    return the weights' gradients in the packs' layout) and equals the
+    stream of the same pack built without one; a wrapper given CPU tensors
+    runs the plain version and never tiles."""
     plan, _, tres = _net("object", seed=4)
     leaves = [l["w"].detach().clone().requires_grad_(True) for l in tres["layers"]]
     res = {"layers": [{"w": w, "b": l["b"]} for w, l in zip(leaves, tres["layers"])]}
-    pack = tfq.pack_trunk_weights(res, plan)
-    tiled = tfq.tile_for_kernel(pack)
-    assert tiled.requires_grad
-    cot = torch.tensor(np.random.RandomState(1).randn(tiled.shape[0]), dtype=torch.float32)
-    (tiled.float() * cot).sum().backward()
-    # the cotangent of a tiled element (rounded to bf16 by the pack's cast)
-    # lands on the weight it came from
-    n, k = 5, 70
-    at = tfq.slab_offset(1 + k // 64, n, k % 64)
-    assert leaves[1].grad[n, k] == cot[at].bfloat16().float()
-    assert all(w.grad is not None and w.grad.abs().max() > 0 for w in leaves[:8])
-    # a wrapper given CPU tensors runs the plain version and never tiles
+    pack = wp.pack_trunk_weights(res, plan)
+    assert pack["bf16"].requires_grad
+    tiled = wp.tile_trunk(pack)
+    assert not tiled.requires_grad and tiled.grad_fn is None
     with torch.no_grad():
-        cpu_pack = tfq.pack_trunk_weights(tres, plan)
+        cpu_pack = wp.pack_trunk_weights(tres, plan)
+    assert torch.equal(tiled.view(torch.int16), wp.tile_trunk(cpu_pack).view(torch.int16))
     pts = torch.tensor(np.random.RandomState(2).randn(1, 5, 3) * 0.1, dtype=torch.float32)
     tf12 = torch.tensor([[1.0, 0, 0, 0, 1, 0, 0, 0, 1, 0, 0, 0]])
-    tfq.fused_object_sampler_sdf(pts, tf12, tfq.embed_window(plan, None, BARF), cpu_pack)
+    tfq.fused_object_sampler_sdf(pts, tf12, embed_window(plan, None, BARF), cpu_pack)
     assert "tiled" not in cpu_pack
 
 
@@ -322,9 +319,9 @@ def cuda():
 def test_cuda_kernels_match_plain(cuda, kind):
     rng = np.random.RandomState(5)
     plan, _, tres = _net(kind, seed=6)
-    pack = tfq.pack_trunk_weights({"layers": [{k: v.to(cuda) for k, v in l.items()}
+    pack = wp.pack_trunk_weights({"layers": [{k: v.to(cuda) for k, v in l.items()}
                                               for l in tres["layers"]]}, plan)
-    window = tfq.embed_window(plan, STEP, BARF, cuda)
+    window = embed_window(plan, STEP, BARF, cuda)
     B, P, S = 3, 37, 128
     if kind == "hand":
         md = build_synthetic_mano(True)

@@ -14,7 +14,8 @@ JAX Pallas kernels run in interpret mode.  Checked:
   sums and roundings, so tighter bounds are held too (``TIGHT``);
 - the render's warp step against the Pallas warp and J^-1 kernels, and
   the plain render as that warp followed by the shade;
-- the shade kernel's weight stream (``tile_shade_fwd``);
+- the shade kernel's weight stream (``ops/weight_pack.py``
+  ``tile_shade_fwd``), element by element against the packs;
 - ``knn_blend_weights`` / ``knn_blend_weights_t`` against the Pallas
   blend kernels;
 - the node render forwards against the JAX nodes at ``training=False``
@@ -60,13 +61,16 @@ from hold_tpu_torch.data import dataset as tds
 from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
 from hold_tpu_torch.models import nodes as tnodes
+from hold_tpu_torch.models.embedders import embed_window
 from hold_tpu_torch.models.mlp import _apply_linear as t_apply_linear
 from hold_tpu_torch.ops import fused_query as tfq
 from hold_tpu_torch.ops import fused_render as tfr
 from hold_tpu_torch.ops import knn as tknn
+from hold_tpu_torch.ops import weight_pack as wp
 from hold_tpu_torch.render import renderer as trenderer
 from hold_tpu_torch.train import batch_to_device
 from hold_tpu_torch.utils.convert import params_from_jax
+from torch_plans import with_plans
 
 NODES = {"hand": (MANO_SPECS, 0), "object": (OBJECT_SPECS, 32)}
 # the JAX package's bounds between its fused render kernel and its XLA shade
@@ -96,10 +100,10 @@ def _f32(x):
 
 def test_supports_fused_render_gates():
     iplan, rplan, _, _ = _nets("hand", 0)
-    assert tfr.supports_fused_render(iplan, rplan)
-    assert not tfr.supports_fused_render(iplan, dict(rplan, mode="nerf_frame_encoding"))
-    assert not tfr.supports_fused_render(iplan, dict(rplan, multires_view=4))
-    assert not tfr.supports_fused_render(iplan, dict(rplan, dims=list(rplan["dims"][:-1]) + [4]))
+    assert wp.supports_fused_render(iplan, rplan)
+    assert not wp.supports_fused_render(iplan, dict(rplan, mode="nerf_frame_encoding"))
+    assert not wp.supports_fused_render(iplan, dict(rplan, multires_view=4))
+    assert not wp.supports_fused_render(iplan, dict(rplan, dims=list(rplan["dims"][:-1]) + [4]))
     assert tfr.RENDER_FLOPS_PER_POINT == 2.0 * 1_300_736
     # without the pads: layer 0 and W4e at E = 39 rows, layer 3 and W4h at
     # 217, C0a at 6 columns, C4 at 3 rows
@@ -111,7 +115,7 @@ def test_supports_fused_render_gates():
 def test_packs_match_jax(kind):
     iplan, _, (jimp, jrend), (timp, trend) = _nets(kind, seed=1)
     jt = jax.device_get(jfr.pack_trunk_transposed(jimp, iplan))
-    tt = tfr.pack_trunk_transposed(timp, iplan)
+    tt = wp.pack_trunk_transposed(timp, iplan)
     for name in ("W1T", "W2T", "W5T", "W6T", "W7T", "feat_w"):
         np.testing.assert_array_equal(_f32(tt[name]), _f32(jt[name]), err_msg=name)
     # 48-row embedding blocks in both; layer 3's 256 - E = 217 outputs are
@@ -122,12 +126,12 @@ def test_packs_match_jax(kind):
     np.testing.assert_array_equal(_f32(tt["W4hT"])[:224], _f32(jt["W4hT"]))
     assert not _f32(tt["W3T"])[:, 217:].any() and not _f32(tt["W4hT"])[217:].any()
     # the transposed pack is the forward pack's transpose
-    fwd = tfq.pack_trunk_weights(timp, iplan)
+    fwd = wp.pack_trunk_weights(timp, iplan)
     for name in ("W0", "W3", "W4h", "W4e", "W7"):
         assert torch.equal(tt[f"{name}T"], fwd[name].t())
 
     jc = jax.device_get(jfr.pack_color_weights(jrend, jimp))
-    tc = tfr.pack_color_weights(trend, timp)
+    tc = wp.pack_color_weights(trend, timp)
     for name in ("C0a", "C0f", "C1", "C2", "C3", "C4"):
         np.testing.assert_array_equal(_f32(tc[name]), _f32(jc[name]), err_msg=name)
     cb = np.asarray(jc["cbias"])
@@ -158,8 +162,8 @@ def _render_case(kind, B=2, N=600):
     plan_arr = jfq.embed_plan(iplan["multires"], None)
     jpacks = (jfq.pack_trunk_weights(jimp, iplan), jfr.pack_trunk_transposed(jimp, iplan),
               jfr.pack_color_weights(jrend, jimp))
-    tpacks = (tfq.embed_window(iplan, None, (0, 1)), tfq.pack_trunk_weights(timp, iplan),
-              tfr.pack_trunk_transposed(timp, iplan), tfr.pack_color_weights(trend, timp))
+    tpacks = (embed_window(iplan, None, (0, 1)), wp.pack_trunk_weights(timp, iplan),
+              wp.pack_trunk_transposed(timp, iplan), wp.pack_color_weights(trend, timp))
     T = torch.tensor
     if kind == "hand":
         V, J = 778, 16
@@ -211,25 +215,50 @@ def test_plain_wrapper_matches_pallas_kernel(kind):
     assert np.abs(rs).max() > 0.05 and rr.std() > 1e-3  # not a degenerate field
 
 
+def stream_matches_packs(stream, entries, tw, bw, cw) -> bool:
+    """True when ``stream`` holds every element of each entry's matrix, taken
+    from the packs by name (a name ending in T that no pack holds is the
+    transpose of the one it names; (name, N) its first N rows in one stage),
+    where ``slab_offset`` puts it, each place once, and zeros elsewhere."""
+    raw = stream.view(torch.int16)
+    mats = {**tw, **bw, **cw}
+    taken = torch.zeros(raw.shape[0], dtype=torch.bool)
+    base = 0
+    for entry in entries:
+        name, narrow = (entry, 0) if isinstance(entry, str) else entry
+        m = mats[name] if name in mats else mats[name[:-1]].t()
+        m = (m[:narrow] if narrow else m).detach().contiguous().view(torch.int16)
+        rows, cols = m.shape
+        n, k = torch.arange(rows)[:, None], torch.arange(cols)[None, :]
+        at = (base + wp.slab_offset(k // 64, n, k % 64, rows if narrow else 256)).reshape(-1)
+        if not torch.equal(raw[at], m.reshape(-1)) or taken[at].any():
+            return False
+        taken[at] = True
+        base += wp.stages(entry) * wp.SLAB
+    return base == raw.shape[0] and not raw[~taken].any()
+
+
 def test_forward_weight_stream_layout():
     """``tile_shade_fwd``: 82 stages of 32 KB in the order the shade kernel
-    consumes them; its first 30 are the fused query's layout of the trunk; a
-    spot element of a full, a 16-column and a narrow matrix sits where
-    ``csrc/cta_gemm.cuh`` documents; built from packs under grad mode, it
-    carries no gradient."""
+    consumes them; its first 30 are the fused query's layout of the trunk;
+    every element of every matrix where ``slab_offset`` puts it, zeros
+    elsewhere; a spot element of a full, a 16-column and a narrow matrix sits
+    where ``csrc/cta_gemm.cuh`` documents; built from packs under grad mode,
+    it carries no gradient."""
     iplan, _, _, (timp, trend) = _nets("object", 3)
-    tw = tfq.pack_trunk_weights(timp, iplan)
-    bw = tfr.pack_trunk_transposed(timp, iplan)
-    cw = tfr.pack_color_weights(trend, timp)
+    tw = wp.pack_trunk_weights(timp, iplan)
+    bw = wp.pack_trunk_transposed(timp, iplan)
+    cw = wp.pack_color_weights(trend, timp)
     assert tw["bf16"].requires_grad
-    stream = tfr.tile_shade_fwd(tw, bw, cw)
+    stream = wp.tile_shade_fwd(tw, bw, cw)
     assert stream.dtype == torch.bfloat16 and not stream.requires_grad
-    assert stream.shape == (tfr.N_FWD_SLABS * tfq.SLAB,) and tfr.N_FWD_SLABS == 82
+    assert stream.shape == (wp.N_FWD_SLABS * wp.SLAB,) and wp.N_FWD_SLABS == 82
     raw = stream.view(torch.int16)
-    assert torch.equal(raw[:30 * tfq.SLAB], tfq.tile_for_kernel(tw).detach().view(torch.int16))
+    assert torch.equal(raw[:30 * wp.SLAB], wp.tile_trunk(tw).view(torch.int16))
+    assert stream_matches_packs(stream, wp.FWD_STREAM, tw, bw, cw)
 
     def first_stage(entry):
-        return sum(map(tfr._stages, tfr.FWD_STREAM[:tfr.FWD_STREAM.index(entry)]))
+        return sum(map(wp.stages, wp.FWD_STREAM[:wp.FWD_STREAM.index(entry)]))
 
     def bits(t):
         return t.detach().contiguous().view(torch.int16)
@@ -239,15 +268,15 @@ def test_forward_weight_stream_layout():
 
     n, k = 13, 250  # the feature head, right after the trunk
     assert first_stage("feat_w") == 30
-    assert raw[(30 + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["feat_w"])[n, k]
+    assert raw[(30 + k // 64) * wp.SLAB + in_slab(n, k)] == bits(bw["feat_w"])[n, k]
     n, k = 250, 3  # the reverse pass's W3T
-    assert raw[(first_stage("W3T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["W3T"])[n, k]
+    assert raw[(first_stage("W3T") + k // 64) * wp.SLAB + in_slab(n, k)] == bits(bw["W3T"])[n, k]
     n, k = 31, 4  # the colour net's 16-column segment: one stage
-    st = first_stage("C0a") * tfq.SLAB
+    st = first_stage("C0a") * wp.SLAB
     assert raw[st + in_slab(n, k)] == bits(cw["C0a"])[n, k]
     n, k = 2, 199  # the colour head: its four k-slabs of 8 rows in the last stage
-    st = first_stage(("C4", 8)) * tfq.SLAB
-    assert first_stage(("C4", 8)) == tfr.N_FWD_SLABS - 1
+    st = first_stage(("C4", 8)) * wp.SLAB
+    assert first_stage(("C4", 8)) == wp.N_FWD_SLABS - 1
     assert raw[st + (k // 64) * 8 * 64 + in_slab(n, k)] == bits(cw["C4"])[n, k]
     assert not raw[st + 4 * 8 * 64:].any()
 
@@ -288,8 +317,8 @@ def test_warp_step_matches_pallas_and_the_shade_follows(kind):
         np.testing.assert_array_equal(jinv.numpy(), np.broadcast_to(tf12[:, None, :9], (B, N, 9)))
         assert not dist.any()
     iplan, _, _, (timp, trend) = _nets(kind, seed=2)
-    packs = (tfq.embed_window(iplan, None, (0, 1)), tfq.pack_trunk_weights(timp, iplan),
-             tfr.pack_trunk_transposed(timp, iplan), tfr.pack_color_weights(trend, timp))
+    packs = (embed_window(iplan, None, (0, 1)), wp.pack_trunk_weights(timp, iplan),
+             wp.pack_trunk_transposed(timp, iplan), wp.pack_color_weights(trend, timp))
     fb0 = torch.tensor(rng.randn(B, 256).astype(np.float32) * 0.1)
     whole = (tfr.hand_render_plain if kind == "hand" else tfr.object_render_plain)(
         *map(torch.tensor, ins[:1]), *map(torch.tensor, ins[1:]), *packs, fb0)
@@ -362,9 +391,9 @@ def test_node_render_matches_jax_nodes(toy, monkeypatch):
     tbatch = batch_to_device(batch_np, "cpu")
     trd, tcl = thn._rays(tbatch)
     fused = thn.build_scene(toy["model"], toy["args"], seq.scene_data(), "cpu")
-    layer = thn.build_scene(toy["model"], toy["args"], seq.scene_data(), "cpu", fused_render=False)
-    assert all(p.fused_render for p in fused.plans.values())
-    assert not any(p.fused_render for p in layer.plans.values())
+    layer = with_plans(thn.build_scene(toy["model"], toy["args"], seq.scene_data(), "cpu"),
+                       fused_shade=False)
+    assert all(p.fused_shade for p in fused.plans.values())
     for nid, jfn, tfn in (("right", jnodes.mano_node_forward, tnodes.mano_node_render),
                           ("object", jnodes.object_node_forward, tnodes.object_node_render)):
         jf, jsd = jax.device_get(jfn(jparams[nid], jscene.servers[nid], jscene.plans[nid], jbatch,
@@ -464,7 +493,7 @@ def test_render_cli_from_a_training_run(toy, tmp_path, monkeypatch):
     exp = str(tmp_path / "run")
     loaded, scene, _ = load_experiment(exp, toy["seq"], "cpu")
     assert torch.equal(loaded["right"]["tables"]["pose"], params["right"]["tables"]["pose"])
-    assert not any(p.fused_render for p in scene.plans.values())  # 64-wide nets
+    assert not any(p.fused_shade for p in scene.plans.values())  # 64-wide nets
 
     monkeypatch.chdir(tmp_path)
     recs = render_cli.main(["--exp", exp, "--case", "toy", "--data_root", toy["root"],
@@ -517,8 +546,8 @@ def test_cuda_render_kernels_match_plain(cuda, kind, n):
     iplan, _, _, (timp, trend) = _nets(kind, seed=4)
     rng = np.random.RandomState(9)
     B, N = 2, n
-    packs = (tfq.embed_window(iplan, None, (0, 1)), tfq.pack_trunk_weights(timp, iplan),
-             tfr.pack_trunk_transposed(timp, iplan), tfr.pack_color_weights(trend, timp))
+    packs = (embed_window(iplan, None, (0, 1)), wp.pack_trunk_weights(timp, iplan),
+             wp.pack_trunk_transposed(timp, iplan), wp.pack_color_weights(trend, timp))
     fb0 = torch.tensor(rng.randn(B, 256).astype(np.float32) * 0.1)
     pts = torch.tensor((rng.randn(B, N, 3) * 0.15).astype(np.float32))
     if kind == "hand":

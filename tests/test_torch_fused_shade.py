@@ -21,12 +21,16 @@ kernel to.  Checked:
   card too;
 - the backward's column-sum plan: each CTA's frame pieces, the runs of
   CTAs, and their fixed-order plain mirrors against torch.sum;
-- the kernels' weight streams: the backward's layout, and the forward's as
-  its first 82 stages, un-swizzled back to the packs;
+- the kernels' weight streams (``ops/weight_pack.py``): the backward's
+  layout element by element against the packs, and the forward's as its
+  first 82 stages;
 - the slice: one grad step of a full-width toy scene with the fused shade
   against the JAX package's under HOLD_FUSED_TRAIN=interpret, at JAX's own
-  fused-vs-chunked bounds; and that ``--no_fused_train`` and the render's
-  ``--no_fused_render`` never run the fused shade.
+  fused-vs-chunked bounds;
+- each node's path as ``build_scene`` chooses it from the nets, and that a
+  scene whose rendering net the kernels do not take never runs the fused
+  shade, in the grad stage or the render, while the default scene runs it
+  once a node.
 
 The CUDA kernels are held against the plain versions on the card (marked
 ``gpu``; skipped without one), the backward in
@@ -55,13 +59,14 @@ from hold_tpu_torch.data.dataset import SequenceData
 from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
 from hold_tpu_torch.models import nodes as tnodes
+from hold_tpu_torch.models.embedders import embed_window
 from hold_tpu_torch.models.losses import compute_losses
-from hold_tpu_torch.ops import fused_query as tfq
 from hold_tpu_torch.ops import fused_render as tfr
 from hold_tpu_torch.ops import fused_shade as fs
+from hold_tpu_torch.ops import weight_pack as wp
 from hold_tpu_torch.train import batch_to_device
 from hold_tpu_torch.utils.convert import flatten_params, params_from_jax
-from test_torch_fused_render import _nets
+from test_torch_fused_render import _nets, stream_matches_packs
 from test_torch_train_step import _draws_from_jax_keys
 
 B, N = 2, 256
@@ -80,9 +85,9 @@ def _packs(timp, trend, iplan, grad=True):
     # do), so that the gradients of both packs add up in f32; without, under
     # no_grad and from the forward pack (as the render does)
     with torch.set_grad_enabled(grad):
-        tw = tfq.pack_trunk_weights(timp, iplan)
-        return tw, tfr.pack_trunk_transposed(timp, iplan, None if grad else tw), \
-            tfr.pack_color_weights(trend, timp)
+        tw = wp.pack_trunk_weights(timp, iplan)
+        return tw, wp.pack_trunk_transposed(timp, iplan, None if grad else tw), \
+            wp.pack_color_weights(trend, timp)
 
 
 @contextlib.contextmanager
@@ -132,7 +137,7 @@ def case():
     jgrad = jax.device_get(jax.grad(lambda *a: _loss(*jref(*a), jnp), argnums=(0, 1, 2, 3, 4))(
         xc, jinv, fb0, jimp, jrend))
     return {"iplan": iplan, "timp": timp, "trend": trend, "xc": xc, "jinv": jinv, "fb0": fb0,
-            "jout": jout, "jgrad": jgrad, "window": tfq.embed_window(iplan, None, (0, 1))}
+            "jout": jout, "jgrad": jgrad, "window": embed_window(iplan, None, (0, 1))}
 
 
 @pytest.mark.parametrize("kind", ["hand", "object"])
@@ -187,14 +192,14 @@ def _inputs(case, n=N):
 def test_explicit_backward_matches_autograd(case):
     tw, bw, cw = _packs(case["timp"], case["trend"], case["iplan"], grad=False)
     bufs = [b.detach().clone().requires_grad_(True) for b in _buffers(tw, bw, cw)]
-    views = fs._unpack(*bufs)
+    views = wp.packs_of(*bufs)
     ins = _inputs(case)
     out = fs.shade_train_plain(*ins, case["window"], *views)
     # the cotangents of test_gradients_match_jax's loss
     cts = torch.autograd.grad(_loss(*out, torch), out, retain_graph=True)
     ref = torch.autograd.grad(_loss(*out, torch), ins + bufs)
     got = fs.shade_train_bwd_plain(*(t.detach() for t in ins), case["window"],
-                                   *fs._unpack(*(b.detach() for b in bufs)), *cts)
+                                   *wp.packs_of(*(b.detach() for b in bufs)), *cts)
     for name, r in zip(("xc", "jinv9", "fb0") + BUFS, ref):
         r = r.float().numpy()
         g = got[name].reshape(r.shape).numpy()
@@ -251,7 +256,7 @@ def test_mac_counts():
     assert round(2 * fs.SHADE_FWD_MACS * 125_440 / 989e12 * 1e3, 4) == 0.3165
     assert round(2 * fs.SHADE_BWD_MACS * 125_440 / 989e12 * 1e3, 4) == 0.9495
     # the backward's weight stream: 38 products of 256 x 256 in four stages each, 12 narrow ones
-    assert fs.N_BWD_SLABS == 38 * 4 + 12 == 164
+    assert wp.N_BWD_SLABS == 38 * 4 + 12 == 164
 
 
 @pytest.mark.parametrize("total", [1, 127, 129, 12_483 * 3, 125_440, 32_768 + 1, 65_536])
@@ -403,22 +408,24 @@ def test_bias_sum_plan(b, n):
 
 def test_backward_weight_stream_layout(case):
     """``tile_shade_bwd``: 164 stages of 32 KB in the order the backward kernel
-    consumes them; its first 30 are the fused query's layout of the trunk; a
-    spot element of a full, a 16-column and a narrow matrix sits where
-    ``csrc/cta_gemm.cuh`` documents; nothing of it carries a gradient."""
+    consumes them; its first 30 are the fused query's layout of the trunk;
+    every element of every matrix where ``slab_offset`` puts it, zeros
+    elsewhere; a spot element of a full, a 16-column and a narrow matrix sits
+    where ``csrc/cta_gemm.cuh`` documents; nothing of it carries a gradient."""
     tw, bw, cw = _packs(case["timp"], case["trend"], case["iplan"], grad=True)
-    stream = fs.tile_shade_bwd(tw, bw, cw)
+    stream = wp.tile_shade_bwd(tw, bw, cw)
     assert stream.dtype == torch.bfloat16 and not stream.requires_grad
-    assert stream.shape == (fs.N_BWD_SLABS * tfq.SLAB,) and fs.N_BWD_SLABS == 164
+    assert stream.shape == (wp.N_BWD_SLABS * wp.SLAB,) and wp.N_BWD_SLABS == 164
     raw = stream.view(torch.int16)
-    assert torch.equal(raw[:30 * tfq.SLAB], tfq.tile_for_kernel(tw).detach().view(torch.int16))
+    assert torch.equal(raw[:30 * wp.SLAB], wp.tile_trunk(tw).view(torch.int16))
+    assert stream_matches_packs(stream, wp.BWD_STREAM, tw, bw, cw)
 
     def first_stage(entry):
         at = 0
-        for e in fs.BWD_STREAM:
+        for e in wp.BWD_STREAM:
             if e == entry:
                 return at
-            at += fs._stages(e)
+            at += wp.stages(e)
         raise KeyError(entry)
 
     def bits(t):
@@ -429,57 +436,35 @@ def test_backward_weight_stream_layout(case):
 
     # a (256, 256) matrix: stage = first + k / 64, rows of 128 bytes, swizzled
     n, k = 201, 150
-    assert raw[(first_stage("W6T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(bw["W6T"])[n, k]
+    assert raw[(first_stage("W6T") + k // 64) * wp.SLAB + in_slab(n, k)] == bits(bw["W6T"])[n, k]
     # the colour net's 16-column layer 0 segment: one stage, columns 16.. zero
     n, k = 77, 5
-    st = first_stage("C0a") * tfq.SLAB
+    st = first_stage("C0a") * wp.SLAB
     assert raw[st + in_slab(n, k)] == bits(cw["C0a"])[n, k]
-    assert not stream[st:st + tfq.SLAB].view(256, 8, 8)[
+    assert not stream[st:st + wp.SLAB].view(256, 8, 8)[
         (torch.arange(8)[None, :] ^ (torch.arange(256)[:, None] % 8)) >= 2].any()
     # a narrow (48, 256) matrix: its four k-slabs of 48 rows in one stage
     n, k = 40, 200
-    st = first_stage(("W4eT", 48)) * tfq.SLAB
+    st = first_stage(("W4eT", 48)) * wp.SLAB
     assert raw[st + (k // 64) * 48 * 64 + in_slab(n, k)] == bits(bw["W4eT"])[n, k]
     # the transposes made here: C2T[n][k] = C2[k][n]
     n, k = 9, 130
-    assert raw[(first_stage("C2T") + k // 64) * tfq.SLAB + in_slab(n, k)] == bits(cw["C2"])[k, n]
-
-
-def _unswizzle(image: torch.Tensor, n: int, k: int, narrow: bool) -> torch.Tensor:
-    """A weight-stream entry's stages -> its (n, k) matrix: the inverse of
-    ``_swizzled_slabs`` (the XOR of a row's 16-byte groups with the row
-    number mod 8 is its own inverse); the pad columns must be zero."""
-    slabs = -(-k // 64)
-    rows = n if narrow else 256
-    groups = image[:slabs * rows * 64].view(slabs, rows, 8, 8)[:, :n]
-    idx = torch.arange(8)[None, :] ^ (torch.arange(n)[:, None] % 8)
-    out = torch.gather(groups, 2, idx[None, :, :, None].expand(slabs, n, 8, 8))
-    out = out.permute(1, 0, 2, 3).reshape(n, slabs * 64)
-    assert not out[:, k:].float().any()
-    return out[:, :k]
+    assert raw[(first_stage("C2T") + k // 64) * wp.SLAB + in_slab(n, k)] == bits(cw["C2"])[k, n]
 
 
 def test_forward_weight_stream_is_the_backward_prefix(case):
     """``tile_shade_fwd`` (the forward kernel's and the render's weight
     stream): the first 82 stages of ``tile_shade_bwd``, bit for bit, in the
-    same entries; each entry un-swizzles back to the packs' matrix."""
+    same entries; each entry holds the packs' matrix where ``slab_offset``
+    puts it."""
     tw, bw, cw = _packs(case["timp"], case["trend"], case["iplan"], grad=False)
-    fwd = tfr.tile_shade_fwd(tw, bw, cw)
-    bwd = fs.tile_shade_bwd(tw, bw, cw)
-    assert tfr.N_FWD_SLABS == 30 + 4 + 30 + 18 == 82
-    assert fwd.dtype == torch.bfloat16 and fwd.shape == (tfr.N_FWD_SLABS * tfq.SLAB,)
-    assert fs.BWD_STREAM[:len(tfr.FWD_STREAM)] == tfr.FWD_STREAM
+    fwd = wp.tile_shade_fwd(tw, bw, cw)
+    bwd = wp.tile_shade_bwd(tw, bw, cw)
+    assert wp.N_FWD_SLABS == 30 + 4 + 30 + 18 == 82
+    assert fwd.dtype == torch.bfloat16 and fwd.shape == (wp.N_FWD_SLABS * wp.SLAB,)
+    assert wp.BWD_STREAM[:len(wp.FWD_STREAM)] == wp.FWD_STREAM
     assert torch.equal(fwd.view(torch.int16), bwd[:fwd.numel()].view(torch.int16))
-    mats = tfr.stream_matrices(tw, bw, cw)
-    at = 0
-    for entry in tfr.FWD_STREAM:
-        name, narrow = (entry, 0) if isinstance(entry, str) else entry
-        m = mats[name][:narrow] if narrow else mats[name]
-        stages = fs._stages(entry)
-        got = _unswizzle(fwd[at * tfq.SLAB:(at + stages) * tfq.SLAB], *m.shape, bool(narrow))
-        assert torch.equal(got.view(torch.int16), m.contiguous().view(torch.int16)), entry
-        at += stages
-    assert at == tfr.N_FWD_SLABS
+    assert stream_matches_packs(fwd, wp.FWD_STREAM, tw, bw, cw)
 
 
 def test_frame_bias_gradient_noise():
@@ -506,7 +491,7 @@ def test_frame_bias_gradient_noise():
         rng.randn(b, n, 3) * 0.1, np.eye(3).reshape(9) + rng.randn(b, n, 9) * 0.05,
         rng.randn(b, 256) * 0.1)]
     cts = [torch.tensor(rng.randn(*s).astype(np.float32)) for s in ((b, n), (b, n, 3), (b, n, 3))]
-    window = tfq.embed_window(iplan, None, (0, 1))
+    window = embed_window(iplan, None, (0, 1))
     f32 = fs.shade_train_bwd_plain(*args, window, *packs, *cts)
     with _f64_products():
         f64 = fs.shade_train_bwd_plain(*args, window, *packs, *cts)
@@ -613,7 +598,7 @@ def _grad_stage(st, scene, params):
 
 def test_fused_grad_step_matches_jax(slice_step):
     st = slice_step
-    assert all(p.fused_train for p in st["tscene"].plans.values())
+    assert all(p.fused_shade for p in st["tscene"].plans.values())
     tl = _grad_stage(st, st["tscene"], st["tparams"])
     np.testing.assert_allclose(float(tl["loss"].detach()), float(st["jl"]["loss"]), rtol=2e-3)
     ref = flatten_params(params_from_jax(st["jg"]))
@@ -632,8 +617,42 @@ def test_fused_grad_step_matches_jax(slice_step):
     assert checked > 100
 
 
-def test_no_fused_train_and_no_fused_render_never_run_the_fused_shade(slice_step, monkeypatch):
-    st = slice_step
+@pytest.fixture(scope="module")
+def small_seq():
+    built = generate_sequence(None, n_frames=4, img_hw=(72, 96))
+    seq = SequenceData(built["images"], built["masks"], built["data"], num_sample=4)
+    return seq, seq.scene_data()
+
+
+def _narrow_net(model, net):
+    model = copy.deepcopy(model)
+    model[net]["dims"] = [64] * len(model[net]["dims"])
+    return model
+
+
+@pytest.mark.parametrize("nets,query,shade", [
+    ("default", True, True),  # the fused query and the fused shade
+    ("implicit_64", False, False),  # the layer-by-layer sampler, the chunked shade
+    ("rendering_64", True, False),  # the fused query, the chunked shade
+])
+def test_build_scene_chooses_each_path_from_the_nets(small_seq, nets, query, shade):
+    _, sd = small_seq
+    model = {"default": _toy_model(), "implicit_64": _narrow_net(_toy_model(), "implicit_network"),
+             "rendering_64": _narrow_net(_toy_model(), "rendering_network")}[nets]
+    scene = thn.build_scene(model, ARGS, sd, "cpu")
+    for nid in scene.node_ids:
+        p = scene.plans[nid]
+        assert (p.fused_query, p.fused_shade) == (query, shade), nid
+        assert p.fused_query == wp.supports_fused_query(p.implicit)
+        assert p.fused_shade == wp.supports_fused_render(p.implicit, p.rendering)
+        assert not p.shade_bf16  # the chunked shade's products: bf16 on the card only
+
+
+def test_no_fused_train_and_no_fused_render_never_run_the_fused_shade(small_seq, monkeypatch):
+    """A scene whose rendering net the kernels do not take shades chunk by
+    chunk: no call of ``fused_shade_train`` in its grad stage or its render.
+    The default scene calls it once a node."""
+    seq, sd = small_seq
     calls = []
     real = tnodes.fused_shade_train
 
@@ -642,20 +661,30 @@ def test_no_fused_train_and_no_fused_render_never_run_the_fused_shade(slice_step
         return real(*a, **kw)
 
     monkeypatch.setattr(tnodes, "fused_shade_train", spy)
-    chunked = thn.build_scene(st["model"], ARGS, st["sd"], "cpu", fused_train=False)
-    assert not any(p.fused_train for p in chunked.plans.values())
-    _grad_stage(st, chunked, params_from_jax(jax.device_get(st["jg"])))
-    assert not calls
-    no_render = thn.build_scene(st["model"], ARGS, st["sd"], "cpu", fused_render=False)
-    assert not any(p.fused_train or p.fused_render for p in no_render.plans.values())
-    with torch.no_grad():
-        thn.holdnet_render(st["tparams"], no_render, st["tbatch"], st["jz"])
-    assert not calls
-    _grad_stage(st, st["tscene"], params_from_jax(jax.device_get(st["jg"])))
-    assert len(calls) == len(st["tscene"].node_ids)
-    from hold_tpu_torch.utils.config import parse_args
+    batch = batch_to_device(seq.sample_tempo_batch(np.random.RandomState(0), 1, num_sample=4),
+                            "cpu")
+    B, P = batch["uv"].shape[:2]
+    z = torch.linspace(0.2, 2.2, 12)[None].expand(B * P, 12).contiguous()
 
-    assert parse_args(["--case", "toy", "--no_fused_train"])[0].no_fused_train
+    def grad_stage(scene):
+        params = thn.init_scene_params(torch.Generator().manual_seed(0), scene, sd)
+        draws = thn.sample_step_draws(scene, B, P, torch.Generator().manual_seed(1))
+        zs = {nid: z for nid in scene.node_ids}
+        out = thn.holdnet_forward(params, scene, batch, thn.empty_object_mesh_state("cpu"),
+                                  draws, STEP, EPOCH, zs)
+        compute_losses(batch, out, scene.node_ids, STEP)["loss"].backward()
+        return params, zs
+
+    chunked = thn.build_scene(_narrow_net(_toy_model(), "rendering_network"), ARGS, sd, "cpu")
+    assert not any(p.fused_shade for p in chunked.plans.values())
+    params, zs = grad_stage(chunked)
+    assert not calls
+    with torch.no_grad():
+        thn.holdnet_render(params, chunked, batch, zs)
+    assert not calls
+    default = thn.build_scene(_toy_model(), ARGS, sd, "cpu")
+    grad_stage(default)
+    assert len(calls) == len(default.node_ids)
 
 
 # --------------------------------------------------------------------------

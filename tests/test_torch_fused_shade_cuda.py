@@ -23,13 +23,13 @@ import numpy as np
 import pytest
 import torch
 
+from hold_tpu_torch.models.embedders import embed_window
 from hold_tpu_torch.models.mlp import (
     implicit_net_shapes, init_implicit_net, init_rendering_net, resolve_weight_norm,
 )
 from hold_tpu_torch.models.specs import MANO_SPECS
-from hold_tpu_torch.ops import fused_query as fq
-from hold_tpu_torch.ops import fused_render as fr
 from hold_tpu_torch.ops import fused_shade as fs
+from hold_tpu_torch.ops import weight_pack as wp
 from hold_tpu_torch.utils.config import DEFAULT_CONFIG
 
 RTOL = ATOL = 5e-3
@@ -68,20 +68,20 @@ def _case(dev, b, n, seed=0):
         g, DEFAULT_CONFIG["model"]["rendering_network"], MANO_SPECS))
     imp, rend = _to(imp, dev), _to(rend, dev)
     with torch.no_grad():
-        tw = fq.pack_trunk_weights(imp, iplan)
-        bw = fr.pack_trunk_transposed(imp, iplan, tw)
-        cw = fr.pack_color_weights(rend, imp)
+        tw = wp.pack_trunk_weights(imp, iplan)
+        bw = wp.pack_trunk_transposed(imp, iplan, tw)
+        cw = wp.pack_color_weights(rend, imp)
     rng = np.random.RandomState(n)
     args = [torch.tensor(a.astype(np.float32), device=dev) for a in (
         rng.randn(b, n, 3) * 0.1, np.eye(3).reshape(9) + rng.randn(b, n, 9) * 0.05,
         rng.randn(b, 256) * 0.1)]
-    return [*args, fq.embed_window(iplan, None, (0, 1), dev), tw, bw, cw]
+    return [*args, embed_window(iplan, None, (0, 1), dev), tw, bw, cw]
 
 
 def _parts(g: dict) -> dict:
     """The backward's tensors cut as chip_smoke.py's shade_grad_parts cuts
     them: x_c, J^-1, the frame bias, each matrix of the packs, each bias row."""
-    tw, bw, cw = fs._unpack(g["tw_b"], g["tw_f"], g["bw_b"], g["cw_b"], g["cw_f"])
+    tw, bw, cw = wp.packs_of(g["tw_b"], g["tw_f"], g["bw_b"], g["cw_b"], g["cw_f"])
     parts = {"xc": g["xc"], "jinv9": g["jinv9"], "fb0": g["fb0"]}
     for tag, pack in (("tw", tw), ("bw", bw), ("cw", cw)):
         for k, v in pack.items():

@@ -21,14 +21,13 @@ from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.mano.lbs import lbs_forward, mano_full_pose
 from hold_tpu_torch.mano.model_data import TIP_VERTEX_IDS
 from hold_tpu_torch.mano.server import build_mano_server
-from hold_tpu_torch.models.embedders import (barf_alpha, barf_embed, barf_window, fourier_embed,
-                                             window_on)
+from hold_tpu_torch.models.embedders import (barf_alpha, barf_embed, barf_window, embed_window,
+                                             fourier_embed, window_on)
 from hold_tpu_torch.models.holdnet import (build_scene, empty_object_mesh_state,
                                            holdnet_forward, init_scene_params,
                                            object_mesh_state_from_mesh, render_packs,
                                            sample_all_z, sample_step_draws)
 from hold_tpu_torch.models.object_model import build_object_server, object_server_forward
-from hold_tpu_torch.ops.fused_query import embed_window
 from hold_tpu_torch.ops.sampling import HAND_GLOBAL_SIGMA_XYZ, point_in_space_sample
 from hold_tpu_torch.render.renderer import make_chunk_renderer
 from hold_tpu_torch.train import batch_to_device, make_train_step, optimizer_for

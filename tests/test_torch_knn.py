@@ -129,7 +129,7 @@ def test_fixed_order_backward_matches_autograd_of_plain(B, P, J):
     partial last tile, and at J = 5 (51 thread groups)."""
     pts, verts, w, tfs, g, g9 = _scene(11, B=B, P=P, V=40, J=J, spread=0.1)
     pts, verts, w, tfs, g, g9 = map(torch.tensor, (pts, verts, w, tfs, g, g9))
-    wb, _ = tknn._blend_plain(pts, verts, w, 15)
+    wb, _ = tknn.blend_plain(pts, verts, w, 15)
     inv = tknn.inverse_mat3(tknn.skinning_jacobian(wb, tfs)).reshape(B, P, 9).contiguous()
     p_t, t_t = pts.clone().requires_grad_(True), tfs.clone().requires_grad_(True)
     x, _ = tknn.inverse_warp_plain(p_t, verts, w, t_t)
@@ -228,7 +228,7 @@ def test_cuda_search_keeps_the_plain_neighbour_sets(cuda, duplicated):
         verts[:, 300:364] = verts[:, 100:164]
     args = [torch.tensor(a, device=cuda) for a in (pts, verts, w, tfs)]
     order = tknn.tile_order(args[1][0])
-    ref_w, ref_dmin = tknn._blend_plain(args[0], args[1], args[2], 15)
+    ref_w, ref_dmin = tknn.blend_plain(args[0], args[1], args[2], 15)
     with tknn.count_search(cuda) as counts:
         xk, ok, _, wb = tknn._warp_fwd_cuda(*args, 15, 0.1, True, "knn_inverse_warp_diff.fwd",
                                             order)

@@ -7,7 +7,7 @@ lane through a second, exact sweep.  ``csrc/point_mesh.cu`` culls the same
 tiles against each point's running minimum.  A CUDA kernel cannot run here,
 so this file holds a model of each design, step for step and vectorised over
 the points (lanes grouped 32 to a warp), against the plain versions the
-wrappers run on CPU tensors (``ops/knn.py::_blend_plain``,
+wrappers run on CPU tensors (``ops/knn.py::blend_plain``,
 ``ops/point_mesh.py::min_vertex_dist``): the same neighbour sets and minima
 bit for bit, the same blended weights within 1e-6, on seeded inputs built to
 break the search: duplicated vertices (ties at the K-th value), a ring seen
@@ -330,7 +330,7 @@ def test_search_model_matches_plain_blend(make, K, ties):
     wb, dmin, support, counts = search_model(pts, v, w, K, knn.tile_order(v))
     d2 = knn._pairwise_sqdist(pts[None], v[None])[0]
     ref_support = d2 <= knn.kth_smallest(d2, K, dim=-1)
-    ref_w, ref_dmin = knn._blend_plain(pts[None], v[None], w[None], K)
+    ref_w, ref_dmin = knn.blend_plain(pts[None], v[None], w[None], K)
     assert torch.equal(support, ref_support)
     assert torch.equal(wb > 0, ref_w[0] > 0)
     assert torch.equal(dmin, ref_dmin[0])

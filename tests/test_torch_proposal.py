@@ -56,6 +56,7 @@ from hold_tpu_torch.models.losses import compute_losses
 from hold_tpu_torch.train import batch_to_device, make_train_step, optimizer_for
 from hold_tpu_torch.utils.config import Cfg
 from hold_tpu_torch.utils.convert import flatten_params, params_from_jax
+from torch_plans import with_plans
 
 PROP_OPT = {"width": 64, "depth": 3, "multires": 6}
 PROPOSAL_LR = 5e-3  # not ARGS' lr: a tensor in the wrong group moves otherwise
@@ -107,7 +108,7 @@ def toy(pallas_knn):
     sd = seq.scene_data()
     model = _model()
     jscene = jhn.build_scene(model, ARGS, sd)
-    tscene = thn.build_scene(model, ARGS, sd, "cpu", fused_train=False)
+    tscene = with_plans(thn.build_scene(model, ARGS, sd, "cpu"), fused_shade=False)
     tparams = thn.init_scene_params(torch.Generator().manual_seed(0), tscene, sd)
     jparams = jax_params_of(tparams, jscene, sd)
     batch_np = seq.sample_tempo_batch(np.random.RandomState(0), 1, num_sample=8)
@@ -289,7 +290,8 @@ def test_train_step_samples_in_proposal_mode_from_the_warmup(toy, monkeypatch):
 
     monkeypatch.setattr(ttrain, "sample_all_z", recording)
     for proposal, want in ((True, [False, True]), (False, [False, False])):
-        scene = thn.build_scene(model, ARGS, sd, "cpu", fused_train=False, proposal=proposal)
+        scene = with_plans(thn.build_scene(model, ARGS, sd, "cpu", proposal=proposal),
+                           fused_shade=False)
         params = thn.init_scene_params(torch.Generator().manual_seed(0), scene, sd)
         opt = optimizer_for(Cfg(ARGS), params)
         assert len(opt.param_groups) == (3 if proposal else 2)

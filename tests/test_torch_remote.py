@@ -131,9 +131,10 @@ def _within(seconds, fn):
 
 def _http_records(mod, url, image_path):
     sink = mod.HttpRemote(url, timeout=2.0, batch_size=2)
-    for i in range(3):
-        sink.log_metrics({"loss": float(i)}, step=i)
-    sink.log_image("panel", image_path, step=3)
+    with sink._send_lock:  # every record queued before the flush thread can POST
+        for i in range(3):
+            sink.log_metrics({"loss": float(i)}, step=i)
+        sink.log_image("panel", image_path, step=3)
     sink.close()
     return sink
 
@@ -150,8 +151,11 @@ def test_http_sink_round_trip_matches_jax(tmp_path, inline):
                 spec = srv.url + ("#inline" if inline else "")
                 sink = mod.remote_from_spec(spec)
                 assert isinstance(sink, mod.HttpRemote) and sink.inline_images == inline
-                sink.log_metrics({"loss": 1.0}, step=1)
-                sink.log_image("panel", str(img), step=1)
+                # both records queued before the flush thread can POST, so
+                # both packages batch them the same way
+                with sink._send_lock:
+                    sink.log_metrics({"loss": 1.0}, step=1)
+                    sink.log_image("panel", str(img), step=1)
                 sink.close()
                 _http_records(mod, srv.url, str(img))
                 got[name] = [[_strip_times(r) for r in b] for b in srv.batches]

@@ -70,8 +70,7 @@ def _args(experiment, tag):
         exp=experiment["exp"], case="toy", data_root=experiment["data_root"],
         render_downsample=DOWNSAMPLE, agent_id=0, num_agents=1, pixel_per_batch=PIXELS,
         out=str(experiment["root"] / tag / "renders"),
-        export_root=str(experiment["root"] / tag / "exports"), device="cpu",
-        no_fused_render=False)
+        export_root=str(experiment["root"] / tag / "exports"), device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -45,8 +45,10 @@ from hold_tpu.render import ray_sampler as jrs
 from hold_tpu_torch.data.dataset import SequenceData
 from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
+from hold_tpu_torch.models.embedders import embed_window
 from hold_tpu_torch.ops import fused_query as tfq
 from hold_tpu_torch.ops import knn as tknn
+from hold_tpu_torch.ops import weight_pack as wp
 from hold_tpu_torch.render import ray_sampler as trs
 from hold_tpu_torch.train import batch_to_device, optimizer_for, run_training
 from hold_tpu_torch.utils import config as tconfig
@@ -247,9 +249,9 @@ def _relu_case(kind, form, relu_kernel, B=2, P=6, S=64):
     result) for one of the four entry points."""
     rng = np.random.RandomState({"hand": 1, "object": 2}[kind])
     plan, jres, tres = _net(kind, seed={"hand": 3, "object": 4}[kind])
-    jpack, tpack = jfq.pack_trunk_weights(jres, plan), tfq.pack_trunk_weights(tres, plan)
+    jpack, tpack = jfq.pack_trunk_weights(jres, plan), wp.pack_trunk_weights(tres, plan)
     plan_arr = jfq.embed_plan(6, _jax_window(kind))
-    window = tfq.embed_window(plan, Q_STEP, BARF)
+    window = embed_window(plan, Q_STEP, BARF)
     T = torch.tensor
     if kind == "hand":
         md = build_synthetic_mano(True)
@@ -373,10 +375,10 @@ def test_cuda_relu_and_strided_queries_match_plain(cuda, kind):
     under its relu counter."""
     rng = np.random.RandomState(5)
     plan, _, tres = _net(kind, seed=6)
-    pack = tfq.pack_trunk_weights({"layers": [{k: v.to(cuda) for k, v in l.items()}
+    pack = wp.pack_trunk_weights({"layers": [{k: v.to(cuda) for k, v in l.items()}
                                               for l in tres["layers"]]}, plan)
     cpack = {k: v.cpu() for k, v in pack.items()}
-    window = tfq.embed_window(plan, Q_STEP, BARF, cuda)
+    window = embed_window(plan, Q_STEP, BARF, cuda)
     B, P, S = 3, 37, 128
     if kind == "hand":
         md = build_synthetic_mano(True)

@@ -1,22 +1,16 @@
-"""The chunked grad-stage shade's switches: bf16 products and the chunk size.
+"""The chunked grad-stage shade's bf16 products.
 
 On its accelerator the JAX package runs the chunked shade's 256-wide trunk
-and colour-net products in bf16 (``hold_tpu.models.nodes._shade_params``,
-``HOLD_SHADE_F32=1`` forces float32) and chunks it by ``HOLD_SHADE_CHUNK``
-points.  The port does the same on the card (``build_scene(shade_f32=...,
-shade_chunk=...)``, the training CLI's ``--shade_f32`` / ``--shade_chunk``)
-and stays in float32 on the CPU, as the JAX package does off its
-accelerator.  Checked on the CPU at toy width (``test_torch_train_step``'s
-scene, the JAX nodes' KNN warps in interpret mode):
-
-- the bf16 shade, forced through ``build_scene(shade_f32=False)``, against
-  the JAX chunked shade with ``_shade_params`` patched to ``_bf16_tree``: one
-  grad stage's loss terms and every parameter gradient, at the bounds
-  below; the float32 port against the same bf16 JAX stage must exceed them
-  somewhere (the bounds see the precision);
-- ``shade_f32=True`` gives the float32 path bit for bit;
-- two chunk sizes give the same loss and gradients within float32 rounding;
-- the flags parse and reach ``build_scene``.
+and colour-net products in bf16 (``hold_tpu.models.nodes._shade_params``).
+The port does the same on the card (``NodePlans.shade_bf16``, set by
+``build_scene`` from the device) and stays in float32 on the CPU, as the
+JAX package does off its accelerator.  Checked on the CPU at toy width
+(``test_torch_train_step``'s scene, the JAX nodes' KNN warps in interpret
+mode): the bf16 shade, its plans replaced (``tests/torch_plans.py``),
+against the JAX chunked shade with ``_shade_params`` patched to
+``_bf16_tree``: one grad stage's loss terms and every parameter gradient,
+at the bounds below; the float32 port against the same bf16 JAX stage must
+exceed them somewhere (the bounds see the precision).
 """
 
 import jax
@@ -32,12 +26,11 @@ from hold_tpu_torch.data.dataset import SequenceData
 from hold_tpu_torch.data.synthetic import generate_sequence
 from hold_tpu_torch.models import holdnet as thn
 from hold_tpu_torch.models.losses import compute_losses
-from hold_tpu_torch.ops.chunk import DEFAULT_CHUNK
 from hold_tpu_torch.train import batch_to_device
-from hold_tpu_torch.utils.config import parse_args, shade_flags
 from hold_tpu_torch.utils.convert import flatten_params, params_from_jax
 from test_torch_train_step import ARGS, EPOCH, STEP, _draws_from_jax_keys, _toy_model
 from test_torch_train_step import pallas_knn  # noqa: F401  (a fixture)
+from torch_plans import with_plans
 
 # bf16 against bf16 on two libraries: each rounds its products' outputs and
 # elementwise steps to bf16 at its own places.  Read here: the loss terms
@@ -46,7 +39,6 @@ from test_torch_train_step import pallas_knn  # noqa: F401  (a fixture)
 # same bf16 stage 2.6e-5 (loss/rgb) and 0.060 (the hand's colour net)
 BF16_LOSS_RTOL, BF16_LOSS_ATOL = 1e-5, 1e-7
 BF16_GRAD_REL = 3e-2  # |d| <= BF16_GRAD_REL * max|ref| + 1e-6, per tensor
-F32_RTOL = 1e-6  # chunk sizes: per-chunk weight sums added in another order
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -73,10 +65,12 @@ def toy(pallas_knn):  # noqa: F811
             "batch_np": batch_np, "jbatch": jbatch, "jz": jax.device_get(z)}
 
 
-def _port_stage(toy, **scene_kw):
+def _port_stage(toy, **plans):
     """(loss dict, flat params with .grad) of one port grad stage on the
-    toy's batch at JAX's z tables and draws, the chunked shade."""
-    scene = thn.build_scene(toy["model"], ARGS, toy["sd"], "cpu", fused_train=False, **scene_kw)
+    toy's batch at JAX's z tables and draws, the chunked shade; ``plans``
+    replace the scene's."""
+    scene = with_plans(thn.build_scene(toy["model"], ARGS, toy["sd"], "cpu"), fused_shade=False,
+                       **plans)
     params = params_from_jax(jax.device_get(toy["jparams"]))
     batch = batch_to_device(toy["batch_np"], "cpu")
     B, P = toy["batch_np"]["uv"].shape[:2]
@@ -128,7 +122,7 @@ def _grad_gaps(ref: dict, got: dict) -> list:
 
 def test_bf16_chunked_shade_matches_the_jax_bf16_shade(toy, jax_bf16):
     jl, jg = jax_bf16
-    scene, tl, flat = _port_stage(toy, shade_f32=False)
+    scene, tl, flat = _port_stage(toy, shade_bf16=True)
     assert all(p.shade_bf16 for p in scene.plans.values())
     assert set(jl) == set(tl)
     for k in jl:
@@ -141,40 +135,3 @@ def test_bf16_chunked_shade_matches_the_jax_bf16_shade(toy, jax_bf16):
     loss_gaps = [k for k in jl if abs(tl32[k] - jl[k]) > BF16_LOSS_RTOL * abs(jl[k])
                  + BF16_LOSS_ATOL]
     assert loss_gaps or _grad_gaps(jg, flat32)
-
-
-def test_shade_f32_gives_the_f32_path_bit_for_bit(toy):
-    scene_d, tl_d, flat_d = _port_stage(toy)  # the CPU's rule: float32
-    scene_f, tl_f, flat_f = _port_stage(toy, shade_f32=True)
-    assert not any(p.shade_bf16 for p in scene_d.plans.values())
-    assert not any(p.shade_bf16 for p in scene_f.plans.values())
-    assert tl_d == tl_f
-    for k, t in flat_d.items():
-        if t.grad is not None:
-            assert torch.equal(t.grad, flat_f[k].grad), k
-
-
-def test_shade_chunk_sizes_agree_within_f32_rounding(toy):
-    scene_a, tl_a, flat_a = _port_stage(toy, shade_chunk=64)
-    scene_b, tl_b, flat_b = _port_stage(toy, shade_chunk=DEFAULT_CHUNK)
-    assert all(p.shade_chunk == 64 for p in scene_a.plans.values())
-    B, P = toy["batch_np"]["uv"].shape[:2]
-    assert B * P * toy["jz"]["object"].shape[1] > 2 * 64  # several chunks against one
-    for k in tl_a:
-        np.testing.assert_allclose(tl_a[k], tl_b[k], rtol=F32_RTOL, atol=1e-7, err_msg=k)
-    for k, t in flat_b.items():
-        if t.grad is not None:
-            scale = float(t.grad.abs().max())
-            assert float((flat_a[k].grad - t.grad).abs().max()) <= F32_RTOL * scale + 1e-9, k
-
-
-def test_shade_flags_parse_and_reach_build_scene(toy):
-    args, _ = parse_args(["--case", "x", "--shade_f32", "--shade_chunk", "4096"])
-    assert shade_flags(args) == {"shade_f32": True, "shade_chunk": 4096}
-    default, _ = parse_args(["--case", "x"])
-    assert shade_flags(default) == {"shade_f32": None, "shade_chunk": DEFAULT_CHUNK}
-    scene = thn.build_scene(toy["model"], ARGS, toy["sd"], "cpu", **shade_flags(args))
-    assert all(not p.shade_bf16 and p.shade_chunk == 4096 for p in scene.plans.values())
-    scene = thn.build_scene(toy["model"], ARGS, toy["sd"], "cpu", **shade_flags(default))
-    assert all(not p.shade_bf16 and p.shade_chunk == DEFAULT_CHUNK
-               for p in scene.plans.values())

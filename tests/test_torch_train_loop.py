@@ -173,15 +173,32 @@ def _flags(parser):
 
 def test_cli_has_every_jax_flag_but_multi_host_and_remote():
     jflags, tflags = _flags(jconfig.build_argparser()), _flags(tconfig.build_argparser())
-    # the JAX package's environment switches are the port's flags
-    port_only = {"--no_fused_sampler", "--no_fused_train", "--no_remat", "--device", "--seed",
-                 "--no_proposal", "--node_bounds", "--sampler_knn_stride", "--sampler_relu",
-                 "--shade_f32", "--shade_chunk"}
+    # the JAX package's sampler switches are the port's flags; its path
+    # switches are not: the port chooses each node's path from its nets
+    port_only = {"--device", "--seed", "--no_proposal", "--node_bounds", "--sampler_knn_stride",
+                 "--sampler_relu"}
+    assert port_only <= set(tflags)
     assert set(tflags) - port_only == set(jflags) - NOT_PORTED
     for s, a in tflags.items():
         if s in jflags:
             assert (a.dest, a.default, a.type) == (jflags[s].dest, jflags[s].default,
                                                    jflags[s].type), s
+
+
+@pytest.mark.parametrize("argv", [
+    ["--no_fused_sampler"], ["--no_fused_train"], ["--no_remat"], ["--shade_f32"],
+    ["--shade_chunk", "4096"], ["render_cli", "--no_fused_render"],
+], ids=lambda a: a[-1] if a[-1].startswith("--") else a[0])
+def test_cli_refuses_the_removed_path_switches(argv):
+    """The path switches went: each node's path follows from its nets."""
+    from hold_tpu_torch import render_cli
+
+    if argv[0] == "render_cli":
+        parser, argv = render_cli.build_argparser(), ["--exp", "x", "--case", "toy", *argv[1:]]
+    else:
+        parser, argv = tconfig.build_argparser(), ["--case", "toy", *argv]
+    with pytest.raises(SystemExit):
+        parser.parse_args(argv)
 
 
 @pytest.mark.parametrize("fast", [False, True], ids=["defaults", "fast_dev_run"])

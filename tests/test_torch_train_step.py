@@ -38,6 +38,7 @@ from hold_tpu_torch.models.losses import compute_losses
 from hold_tpu_torch.train import batch_to_device, optimizer_for
 from hold_tpu_torch.utils.config import Cfg
 from hold_tpu_torch.utils.convert import flatten_params, params_from_jax
+from torch_plans import with_plans
 
 STEP, EPOCH = 300, 25  # hand loss targets active, pose conditioning on
 ARGS = {"barf_s": 0, "barf_e": 1000, "lr": 1e-3, "freeze_pose": False}
@@ -76,7 +77,7 @@ def toy(pallas_knn):
     jparams = jhn.init_scene_params(jax.random.PRNGKey(0), jscene, sd)
     # the JAX package's CPU default is the chunked shade (its fused one runs on
     # a TPU): compare the port's chunked shade with it
-    tscene = thn.build_scene(model, ARGS, sd, "cpu", fused_train=False)
+    tscene = with_plans(thn.build_scene(model, ARGS, sd, "cpu"), fused_shade=False)
     batch_np = seq.sample_tempo_batch(np.random.RandomState(0), 1, num_sample=8)
     jbatch = {k: jnp.asarray(v) for k, v in batch_np.items()}
     z = jax.jit(lambda p, b: jhn.sample_all_z(p, jscene, b, None, jnp.asarray(STEP),

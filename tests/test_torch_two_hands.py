@@ -42,6 +42,7 @@ from hold_tpu_torch.models.losses import compute_losses
 from hold_tpu_torch.train import batch_to_device
 from hold_tpu_torch.utils import mesh as tmesh
 from hold_tpu_torch.utils.convert import flatten_params, params_from_jax
+from torch_plans import with_plans
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +52,7 @@ def two_hand(pallas_knn):
     sd = seq.scene_data()
     model = _toy_model()
     jscene = jhn.build_scene(model, ARGS, sd)
-    tscene = thn.build_scene(model, ARGS, sd, "cpu", fused_train=False)
+    tscene = with_plans(thn.build_scene(model, ARGS, sd, "cpu"), fused_shade=False)
     jparams = jax_params_of(thn.init_scene_params(torch.Generator().manual_seed(0), tscene, sd),
                             jscene, sd)
     return {"seq": seq, "jscene": jscene, "jparams": jparams, "tscene": tscene}
